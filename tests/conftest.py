@@ -21,6 +21,7 @@ def pytest_configure(config):
         "slow: long-running integration sims; skipped by default so the "
         "tier-1 run (`PYTHONPATH=src python -m pytest -x -q`) has "
         "`-m 'not slow'` semantics. Opt in with --runslow or -m slow.")
+    config.addinivalue_line("markers", "gpu: runs only with a CUDA device")
 
 
 def pytest_collection_modifyitems(config, items):
