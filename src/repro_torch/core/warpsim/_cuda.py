@@ -24,20 +24,17 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import _nvcc as nvcc_build
 from repro_torch.core.warpsim.config import MachineConfig
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
+BUILD_DIR = nvcc_build.BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 _SOURCES = ("warpsim_family.cu", "warpsim_family.cuh")
@@ -100,15 +97,7 @@ def resolve_engine(engine: str, device) -> str:
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the family kernels")
+_nvcc = nvcc_build.find_nvcc
 
 
 def build() -> str:
@@ -116,22 +105,9 @@ def build() -> str:
 
     Raises RuntimeError with nvcc's output when the build fails.
     """
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update((CSRC / name).read_bytes())
-    so = BUILD_DIR / f"libwarpsim_family_{h.hexdigest()[:16]}.so"
-    if so.exists():
-        return str(so)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC / "warpsim_family.cu")]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                           f"{r.stdout}{r.stderr}")
-    os.replace(tmp, so)     # atomic: concurrent builds race benignly
-    return str(so)
+    return nvcc_build.build_shared(CSRC / _SOURCES[0],
+                                   [CSRC / n for n in _SOURCES[1:]],
+                                   NVCC_FLAGS, BUILD_DIR, _nvcc)
 
 
 def _lib() -> ctypes.CDLL:
