@@ -6,8 +6,9 @@
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every kernel from the ``csrc`` sources in the checkout, one
    ``nvcc`` per source, all started together: the family kernels (K1,
-   K2) and the LM kernels (K3 ``gather_rows_kernel``, K4 ``gmm_kernel``),
-   whose ``ptxas -v`` report (registers, shared memory, spills) it prints.
+   K2) and the LM kernels (K3 ``gather_rows_kernel``, K4 ``gmm_kernel``,
+   K5 ``flash_attention_kernel``, K6 ``ssd_scan_kernel``), whose
+   ``ptxas -v`` report (registers, shared memory, spills) it prints.
 3. Holds K1 (``ws_prep_kernel``) against ``prep_ref`` on the same card
    tensors, and K2 (``ws_family_kernel``) against ``simulate_family_ref``
    run on the host CPU, on every one of the warp-size study's 45 trace
@@ -50,6 +51,29 @@
 11. Times K3 and K4 on those inputs (torch.profiler device time as the
    JSON ``ms``; CUDA events printed apart), beside the plain version, the
    bound and one PyTorch library call computing the same function.
+12. Holds K5 against ``flash_attention_ref`` (the reference's test shapes,
+   causal and not, float32 at 2e-5; its four tile sizes; bf16 at 3e-2;
+   ragged S and hd; the two timing shapes) and K6 against
+   ``ssd_scan_ref`` and ``ssd_seq_ref`` (rtol 2e-4, atol 2e-5: the
+   reference's test shapes, chunks 16-128, P 50 / N 16, the kernel-bench
+   shape).
+13. Serves the ``mamba2-780m`` and ``hymba-1.5b`` smoke configs in
+   float32 on numpy-seeded weights against the reference's golden files
+   (``serve_golden_mamba2_smoke.json``, ``serve_golden_hymba_smoke.json``):
+   tokens exactly, logits within rtol 1e-4, atol 1e-4.
+14. Builds ``mamba2-780m`` at full width (48 layers, bf16, seed 0), holds
+   K6 + D x against the port's ``ssm.ssd_scan`` on layer 0's float32
+   pre-scan tensors of a 4096-token prompt (BH 48, P 64, N 128, chunk
+   256), then serves it as the reference's ``serve.py`` defaults (8
+   requests, 4 slots, 16 new tokens) with the launch counts set to 0 just
+   before and read just after: they stay 0, as the reference's ssm model
+   path reaches no Pallas kernel. A traced second run gives its idle share
+   and top device operations.
+15. Drives the kernel-bench path, ``kernel_bench.run()``, with the launch
+   counts set to 0 just before and read just after: K5, K4 and K6 must
+   each launch. Prints its rows.
+16. Times K5 and K6 as in 11, beside their plain versions, bounds and, for
+   K5, ``scaled_dot_product_attention``.
 
 Prints one JSON object of kernel records on the line before the last and
 ``{"ok": true, "device": ...}`` as the last line. Exits non-zero, printing
@@ -58,6 +82,7 @@ no result, without a CUDA device, outside a checkout, or on any mismatch.
 
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -77,28 +102,60 @@ PEAK_OPS_PER_S = 34e12
 # The tensor cores' dense bf16 rate (NVIDIA data sheet), which the LM
 # kernels' bf16 products are counted against.
 PEAK_BF16_OPS_PER_S = 989e12
+# The "FP32" row (outside the tensor cores, NVIDIA data sheet): float32
+# kernels held to the reference's float32 tolerances cannot use TF32.
+PEAK_FP32_OPS_PER_S = 67e12
 GRID_FILE = os.path.join(ROOT, "src", "repro_torch", "core", "warpsim",
                          "data", "paper_grid_seeds012.json")
 SOURCE = "src/repro_torch/core/warpsim/csrc/warpsim_family.cu"
 REPLACES = {"ws_prep_kernel": "src/repro/core/warpsim/_pallas.py:192",
             "ws_family_kernel": "src/repro/core/warpsim/_pallas.py:233",
             "gather_rows_kernel": "src/repro/kernels/coalesced_gather.py:30",
-            "gmm_kernel": "src/repro/kernels/moe_gmm.py:24"}
+            "gmm_kernel": "src/repro/kernels/moe_gmm.py:24",
+            "flash_attention_kernel":
+                "src/repro/kernels/flash_attention.py:25",
+            "ssd_scan_kernel": "src/repro/kernels/ssd_scan.py:30"}
 LM_SOURCES = {
     "gather_rows_kernel": "src/repro_torch/kernels/csrc/coalesced_gather.cu",
-    "gmm_kernel": "src/repro_torch/kernels/csrc/moe_gmm.cu"}
-GOLDEN_FILE = os.path.join(ROOT, "src", "repro_torch", "models", "data",
-                           "serve_golden_qwen2moe_smoke.json")
+    "gmm_kernel": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+    "flash_attention_kernel":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "ssd_scan_kernel": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
+DATA_DIR = os.path.join(ROOT, "src", "repro_torch", "models", "data")
+GOLDEN_FILE = os.path.join(DATA_DIR, "serve_golden_qwen2moe_smoke.json")
+SSM_GOLDEN_FILES = [os.path.join(DATA_DIR, f"serve_golden_{name}_smoke.json")
+                    for name in ("mamba2", "hymba")]
 # The reference's own K4 tolerances (tests/test_kernels.py), by dtype name.
 GMM_RTOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LOGIT_TOL = (1e-4, 1e-4)       # rtol, atol: see tests/test_torch_models.py
 # The full-width serve: the reference's serve.py defaults, SW+ dispatch.
 SERVE = dict(arch="qwen2-moe-a2.7b", requests=8, slots=4, max_new=16,
              max_len=256, seed=0)
+# The full-width ssm serve: the same defaults.
+SSM_SERVE = dict(SERVE, arch="mamba2-780m")
+# K5 at the reference's tolerances (tests/test_kernels.py), by dtype name;
+# K6 at its rtol / atol.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# K5 in bf16 at S 2048 (rtol, atol): both sides sum in float32 on the same
+# bf16 inputs, so they may differ by the output's rounding, at most one
+# bf16 ulp (2^-7 relative). The reference's 3e-2 is about as large as a
+# typical output there (|o| ~ sqrt(e / S) ~ 0.04) and would let a dropped
+# KV tile pass.
+FLASH_LONG_BF16_TOL = (8e-3, 4e-3)
+SSD_TOL = (2e-4, 2e-5)
+SSD_PROMPT = 4096          # tokens of the full-width K6 check
+
+
+T_START = time.perf_counter()
 
 
 def fail(msg: str) -> None:
     sys.exit(f"chip_smoke: FAIL: {msg}")
+
+
+def stamp(phase: str) -> None:
+    """Print the script's elapsed time as `phase` starts."""
+    print(f"[{time.perf_counter() - T_START:8.1f} s] {phase}", flush=True)
 
 
 def card_line() -> str:
@@ -369,18 +426,18 @@ def record_logits(server, log):
     server._prefill, server._decode = pre, dec
 
 
-def golden_serve(torch, dev):
-    """The smoke serve of the golden file, on the card: tokens exactly and
-    every step's logits within LOGIT_TOL of the reference's."""
+def golden_serve(torch, dev, path=GOLDEN_FILE):
+    """The smoke serve of the golden file at `path`, on the card: tokens
+    exactly and every step's logits within LOGIT_TOL of the reference's."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import convert
-    with open(GOLDEN_FILE, encoding="utf-8") as fh:
+    with open(path, encoding="utf-8") as fh:
         blob = json.load(fh)
     gs = blob["serve"]
+    over = {k: gs[k] for k in ("dtype", "moe_dispatch") if k in gs}
     cfg = dataclasses.replace(get_config(gs["arch"], smoke=gs["smoke"]),
-                              dtype=gs["dtype"],
-                              moe_dispatch=gs["moe_dispatch"])
+                              **over)
     params = convert.params_from_numpy(
         convert.numpy_params(cfg, gs["seed"]), cfg, dev)
     reqs = serve.make_requests(cfg, gs["requests"], gs["max_new"],
@@ -409,7 +466,8 @@ def golden_serve(torch, dev):
                 not bool((got[:, v:] == -1e9).all()):
             fail(f"smoke serve logits differ from the reference's: max "
                  f"{d.max().item()}")
-    print(f"reference parity: smoke serve (float32, sw_plus, "
+    print(f"reference parity: {gs['arch']} smoke serve ({gs['dtype']}, "
+          f"{gs.get('moe_dispatch', cfg.family)}, "
           f"{gs['requests']} requests, {gs['slots']} slots, "
           f"{stats['decode_steps']} decode steps) == golden file: tokens "
           f"exact, logits max |diff| {worst:.3g} (tolerance rtol {rtol}, "
@@ -510,8 +568,9 @@ def full_width_serve(torch, dev, cfg, card, err):
         launches = {k: kernels.launch_count(k) for k in kernels.KERNELS}
     peak = torch.cuda.max_memory_allocated(dev)
     forwards = stats["requests"] + stats["decode_steps"]   # prefills + steps
-    want = {"gather_rows_kernel": cfg.n_layers * forwards,
-            "gmm_kernel": 3 * cfg.n_layers * forwards}
+    want = dict({k: 0 for k in kernels.KERNELS},
+                gather_rows_kernel=cfg.n_layers * forwards,
+                gmm_kernel=3 * cfg.n_layers * forwards)
     if launches != want:
         fail(f"serve path launches {launches}, expected {want} "
              f"({forwards} forwards of {cfg.n_layers} layers)")
@@ -687,6 +746,343 @@ def lm_timing(torch, saved, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# K5, K6, the ssm serve path and the kernel-bench path
+# ---------------------------------------------------------------------------
+
+
+def check_flash(torch, fa, ref, qkv, causal, err, bq=128, bkv=128,
+                tol=None):
+    """K5 against flash_attention_ref at `tol` (rtol, atol), FLASH_TOL's
+    by default."""
+    q, k, v = qkv
+    if tol is None:
+        tol = (FLASH_TOL[str(q.dtype).replace("torch.", "")],) * 2
+    check_close(torch, "flash_attention_kernel",
+                fa.flash_attention(q, k, v, causal, bq, bkv),
+                ref.flash_attention_ref(q, k, v, causal), *tol, err)
+
+
+def flash_checks(torch, dev, err):
+    """K5 against flash_attention_ref: the reference's test shapes, causal
+    and not, in float32 (2e-5); its four tile sizes; bf16 (3e-2); ragged S
+    and hd; and the two timing shapes (causal; bf16 at
+    FLASH_LONG_BF16_TOL). Returns the timing cases (label, (q, k, v))."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+
+    def qkv(shape, dtype=torch.float32):
+        return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for _ in range(3))
+
+    for bh, s, hd, bq, bkv in ((2, 128, 64, 64, 64), (4, 256, 32, 128, 64),
+                               (1, 512, 128, 128, 128)):
+        x = qkv((bh, s, hd))
+        for causal in (True, False):
+            check_flash(torch, fa, ref, x, causal, err, bq, bkv)
+    x = qkv((2, 256, 64))
+    for bq, bkv in ((64, 64), (128, 64), (64, 128), (256, 256)):
+        check_flash(torch, fa, ref, x, True, err, bq, bkv)
+    check_flash(torch, fa, ref, qkv((2, 128, 64), torch.bfloat16), True,
+                err)
+    for causal in (True, False):
+        check_flash(torch, fa, ref, qkv((3, 100, 40)), causal, err, 100, 100)
+    cases = []
+    for label, (bh, s, hd, dtype) in (
+            ("kernel_bench width", (8, 2048, 64, torch.float32)),
+            ("qwen2-moe heads", (16, 2048, 128, torch.bfloat16))):
+        x = qkv((bh, s, hd), dtype)
+        check_flash(torch, fa, ref, x, True, err,
+                    tol=None if dtype == torch.float32
+                    else FLASH_LONG_BF16_TOL)
+        cases.append((f"K5 {label}", x))
+    torch.cuda.synchronize()
+    print(f"K5 ~ flash_attention_ref (rtol = atol = 2e-5 float32, 3e-2 "
+          f"bf16): (2, 128, 64), (4, 256, 32), (1, 512, 128) causal and "
+          f"not; tiles (64, 64), (128, 64), (64, 128), (256, 256); bf16 "
+          f"(2, 128, 64); ragged (3, 100, 40); timing shapes (8, 2048, 64) "
+          f"float32 and (16, 2048, 128) bf16 (rtol "
+          f"{FLASH_LONG_BF16_TOL[0]}, atol {FLASH_LONG_BF16_TOL[1]}); "
+          f"max |diff| "
+          f"{err['flash_attention_kernel']:.3g}")
+    return cases
+
+
+def check_ssd(torch, ssd, ref, args, chunk, err, seq=True):
+    """K6 against ssd_scan_ref (and ssd_seq_ref) at SSD_TOL; returns K6's
+    output."""
+    rtol, atol = SSD_TOL
+    got = ssd.ssd_scan_kernel(*args, chunk=chunk)
+    check_close(torch, "ssd_scan_kernel", got, ref.ssd_scan_ref(*args, chunk),
+                rtol, atol, err)
+    if seq:
+        check_close(torch, "ssd_scan_kernel", got, ref.ssd_seq_ref(*args),
+                    rtol, atol, err)
+    return got
+
+
+def ssd_checks(torch, dev, err):
+    """K6 against ssd_scan_ref and ssd_seq_ref (rtol 2e-4, atol 2e-5): the
+    reference's test shapes, chunks 16/32/64/128, hymba's P 50 / N 16, and
+    the kernel-bench shape. Returns the timing case."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+
+    def inputs(bh, s, p, n):
+        def rn(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+        return (rn(bh, s, p) * 0.5,
+                -torch.nn.functional.softplus(rn(bh, s)),
+                rn(bh, s, n) * 0.3, rn(bh, s, n) * 0.3)
+
+    for bh, s, p, n, q in ((2, 64, 16, 8, 16), (3, 128, 32, 16, 32),
+                           (1, 256, 64, 32, 64), (2, 64, 50, 16, 16)):
+        check_ssd(torch, ssd, ref, inputs(bh, s, p, n), q, err)
+    args = inputs(2, 128, 16, 8)
+    first = check_ssd(torch, ssd, ref, args, 16, err)
+    for q in (32, 64, 128):
+        rtol, atol = SSD_TOL
+        check_close(torch, "ssd_scan_kernel",
+                    check_ssd(torch, ssd, ref, args, q, err), first, rtol,
+                    atol, err)
+    bench = inputs(16, 4096, 64, 64)
+    check_ssd(torch, ssd, ref, bench, 128, err)
+    torch.cuda.synchronize()
+    print(f"K6 ~ ssd_scan_ref and ssd_seq_ref (rtol {SSD_TOL[0]}, atol "
+          f"{SSD_TOL[1]}): (2, 64, 16, 8) q 16, (3, 128, 32, 16) q 32, "
+          f"(1, 256, 64, 32) q 64, P 50 / N 16, chunks 16/32/64/128 "
+          f"agreeing, kernel-bench shape (16, 4096, 64, 64) q 128; max "
+          f"|diff| {err['ssd_scan_kernel']:.3g}")
+    return [("K6 kernel_bench width", bench, 128)]
+
+
+def ssd_model_check(torch, dev, cfg, params, err):
+    """K6 at `cfg`'s full width: layer 0's pre-scan tensors of a
+    SSD_PROMPT-token prompt (the port's ``ssm._project`` and
+    ``_causal_conv``, cast to float32) formed as ``ssm.ssd_scan`` forms
+    them; ``K6(xdt, da, b, c) + D x`` held against ``ssm.ssd_scan(...)[0]``
+    on the same inputs. Returns the timing case."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import common, ssm
+    from repro_torch.models import model as model_lib
+    lp = model_lib.layer_params(params, 0)
+    sp = lp["ssm"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SSM_SERVE["seed"])
+    s, nh, p, n = SSD_PROMPT, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=g,
+                           device=dev)
+    x = model_lib.embed_inputs(params, cfg, {"tokens": tokens})
+    hn = common.rms_norm(x, lp["ssm_norm"], cfg.norm_eps)
+    _z, xs, bc, dt = ssm._project(sp, hn)
+    xs_c, _ = ssm._causal_conv(xs, sp["conv_x_w"], sp["conv_x_b"])
+    bc_c, _ = ssm._causal_conv(bc, sp["conv_bc_w"], sp["conv_bc_b"])
+    xm = xs_c.reshape(1, s, nh, p).float()
+    bm, cm = (t.reshape(1, s, cfg.ssm_groups, n).float()
+              for t in torch.chunk(bc_c, 2, dim=-1))
+    dtm = dt.float() + sp["dt_bias"][None, None, :]
+    want = ssm.ssd_scan(xm, dtm, sp["A_log"], bm, cm, sp["D"],
+                        cfg.ssm_chunk)[0]
+    dtf = torch.nn.functional.softplus(dtm)
+    da = dtf * (-torch.exp(sp["A_log"]))[None, None, :]
+
+    def heads(t):      # (1, S, nh, W) -> (nh, S, W)
+        return t[0].permute(1, 0, 2).contiguous()
+
+    rep = nh // cfg.ssm_groups
+    args = (heads(xm * dtf[..., None]), da[0].t().contiguous(),
+            heads(bm.repeat_interleave(rep, dim=2)),
+            heads(cm.repeat_interleave(rep, dim=2)))
+    y = ssd.ssd_scan_kernel(*args, chunk=cfg.ssm_chunk)
+    got = y.reshape(1, nh, s, p).permute(0, 2, 1, 3) + \
+        xm * sp["D"][None, None, :, None]
+    scale = max(1.0, want.abs().max().item())
+    worst = (got - want).abs().max().item()
+    rtol, atol = SSD_TOL
+    check_close(torch, "ssd_scan_kernel", got.contiguous(), want, rtol,
+                atol * scale, err)
+    print(f"K6 + D x ~ ssm.ssd_scan at {cfg.name}'s width (layer 0, a "
+          f"{s}-token prompt, BH {nh}, P {p}, N {n}, chunk "
+          f"{cfg.ssm_chunk}, float32): max |diff| {worst:.3g}, max |y| "
+          f"{scale:.4g} (rtol {rtol}, atol {atol} x max(1, max |y|))")
+    return (f"K6 {cfg.name} width", args, cfg.ssm_chunk)
+
+
+def full_width_ssm_serve(torch, dev, cfg, params, card):
+    """The ssm serve path at `cfg`'s full width, with the launch counts
+    set to 0 just before and read just after (all stay 0: the reference's
+    ssm model path reaches no Pallas kernel), then a traced second run."""
+    from repro_torch import kernels
+    from repro_torch.kernels import coalesced_gather as cg
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.launch import serve
+
+    def fresh():
+        return (serve.BatchedServer(cfg, params, SSM_SERVE["slots"],
+                                    SSM_SERVE["max_len"], device=dev),
+                serve.make_requests(cfg, SSM_SERVE["requests"],
+                                    SSM_SERVE["max_new"],
+                                    seed=SSM_SERVE["seed"]))
+
+    server, reqs = fresh()
+    rec = KernelRecorder(torch, server, cg, gmm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with rec:
+        kernels.reset_launch_counts()
+        stats = server.run(reqs)
+        launches = {k: kernels.launch_count(k) for k in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if any(launches.values()):
+        fail(f"the ssm serve path launched LM kernels: {launches}")
+    if rec.bad_shape or not rec.finite.item():
+        fail(f"ssm serve logits not finite or misshaped {rec.bad_shape}")
+    for r in reqs:
+        if len(r.generated) != SSM_SERVE["max_new"] or not all(
+                0 <= t < cfg.vocab_size for t in r.generated):
+            fail(f"request {r.rid} generated {r.generated}")
+    print(f"ssm serve path: {cfg.name}, {stats['requests']} requests "
+          f"(prompts {[len(r.prompt) for r in reqs]}), "
+          f"{SSM_SERVE['slots']} slots, {stats['requests']} prefills + "
+          f"{stats['decode_steps']} decode steps, "
+          f"{stats['total_new_tokens']} new tokens; launches {launches}: "
+          f"none, as in the reference, whose ssm model path reaches no "
+          f"Pallas kernel")
+    print(f"ssm serve path wall {stats['wall_s']:.3f} s, "
+          f"{stats['tokens_per_s']:.3f} new tokens/s, peak memory "
+          f"{peak / 1e9:.3f} GB (max_memory_allocated) [{card}]")
+    server2, reqs2 = fresh()
+    t_wall, parts = profiled_run(torch, lambda: server2.run(reqs2))
+    busy = sum(parts.values())
+    if busy <= 0:
+        fail("torch.profiler recorded no device time for the ssm serve path")
+    same = [r.generated for r in reqs2] == [r.generated for r in reqs]
+    print(f"traced second ssm serve run: wall {1e3 * t_wall:.3f} ms, device "
+          f"busy {busy:.3f} ms, idle share {1 - busy / (1e3 * t_wall):.4f} "
+          f"(both from this run, under torch.profiler), same tokens: "
+          f"{same} [{card}]")
+    for key, ms in sorted(parts.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:10.3f} ms  {key[:70]}")
+    return stats
+
+
+def kernel_bench_path(torch, dev, card, err):
+    """``kernel_bench.run()`` on the card with the launch counts set to 0
+    just before and read just after: K5, K4 and K6 must each launch. Then
+    each kernel of its record rows against its plain version, on the
+    record's own inputs."""
+    from repro_torch import kernels
+    from repro_torch.benchmarks import kernel_bench
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = kernel_bench.run(dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.launch_count(k) for k in kernels.KERNELS}
+    for k in ("flash_attention_kernel", "gmm_kernel", "ssd_scan_kernel"):
+        if launches[k] < 1:
+            fail(f"the kernel-bench path never launched {k}: {launches}")
+    if not all(math.isfinite(us) and us > 0 for _, us, _ in rows):
+        fail(f"kernel-bench rows not finite and positive: {rows}")
+    print(f"kernel-bench path: {len(rows)} rows in {wall:.3f} s, launches "
+          f"{launches} [{card}]")
+    rec = kernel_bench.record_inputs(dev)
+    check_flash(torch, fa, ref, rec["flash_attention"], True, err)
+    check_gmm(torch, ref, gmm, *rec["moe_gmm"], 128, err)
+    check_ssd(torch, ssd, ref, rec["ssd_scan"], 128, err)
+    torch.cuda.synchronize()
+    print("kernel-bench record inputs: K5 (2, 256, 64) float32 causal, K4 "
+          "(256, 128) x (4, 128, 128) float32 bm 128, K6 (16, 4096, 64, 64) "
+          "q 128, each ~ its plain version at the tolerances above")
+    print("  name,us_per_call,derived")
+    for name, us, derived in rows:
+        print(f"  {name},{us:.1f},{derived:.3f}")
+    return launches
+
+
+def k5_k6_timing(torch, flash_cases, ssd_cases, card):
+    """Times K5 and K6 (torch.profiler device time as the JSON ``ms``,
+    CUDA events printed apart) beside the plain version, the bound and,
+    for K5, scaled_dot_product_attention. Returns the JSON rows from the
+    first case of each (the kernel-bench width)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = []         # (kernel, label, shape, fn, plain, lib, bound, reps)
+    for label, (q, k, v) in flash_cases:
+        bh, s, hd = q.shape
+        item = q.element_size()
+        peak = (PEAK_FP32_OPS_PER_S if q.dtype == torch.float32
+                else PEAK_BF16_OPS_PER_S)
+        cases.append((
+            "flash_attention_kernel", label,
+            f"({bh}, {s}, {hd}) {str(q.dtype)[6:]} causal",
+            lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, True),
+            lambda q=q, k=k, v=v: ref.flash_attention_ref(q, k, v, True),
+            lambda q=q[None], k=k[None], v=v[None]:
+                sdpa(q, k, v, is_causal=True),
+            bound_ms(4 * bh * s * hd * item,
+                     4 * bh * hd * s * (s + 1) // 2, peak), 10))
+    for label, args, chunk in ssd_cases:
+        xdt, _, b, _ = args
+        bh, s, p = xdt.shape
+        n = b.shape[-1]
+        byts = 4 * bh * s * (2 * p + 1 + 2 * n)
+        # only j <= i of C B^T and of its product with xdt: the kernel
+        # forms no more
+        ops = (s // chunk) * bh * (chunk * (chunk + 1) * (n + p)
+                                   + 4 * chunk * p * n)
+        cases.append((
+            "ssd_scan_kernel", label, f"({bh}, {s}, {p}, {n}) q {chunk}",
+            lambda a=args, c=chunk: ssd.ssd_scan_kernel(*a, chunk=c),
+            lambda a=args, c=chunk: ref.ssd_scan_ref(*a, c), None,
+            bound_ms(byts, ops, PEAK_FP32_OPS_PER_S), 5))
+    rows = {}
+    print(f"K5 / K6 times, ms per launch [{card}]:")
+    print(f"  {'case':26s} {'shape':34s} {'dev':>8s} {'ev':>8s} "
+          f"{'plain':>8s} {'bound':>8s} {'by':>5s} {'library':>8s}")
+    for kernel, label, shape, fn, plain_fn, lib_fn, (bnd, by), reps in cases:
+        for warm in (fn, plain_fn, lib_fn):    # first calls pick and build
+            if warm is not None:               # plans (SDPA's backends)
+                warm()
+        torch.cuda.synchronize()
+        dev_ms = profiled_ms(torch, fn, kernel, reps)
+        if dev_ms is None:
+            fail(f"torch.profiler recorded no device time for {label}")
+        ev = event_ms(torch, fn, reps)
+        plain = event_ms(torch, plain_fn, 3)
+        lib = event_ms(torch, lib_fn, reps) if lib_fn else None
+        print(f"  {label:26s} {shape:34s} {dev_ms:8.4f} {ev:8.4f} "
+              f"{plain:8.4f} {bnd:8.5f} {by[:5]:>5s} "
+              f"{'none' if lib is None else f'{lib:8.4f}':>8s}")
+        if kernel not in rows:
+            rows[kernel] = [(dev_ms, plain, bnd, by) +
+                            (() if lib is None else (lib,))]
+    print("  dev: torch.profiler device time (the JSON ms); ev: CUDA events "
+          "over back-to-back wrapper calls, launch overhead included; "
+          "plain: flash_attention_ref / ssd_scan_ref on the card, CUDA "
+          "events; bound: the larger of bytes (inputs read once, output "
+          "written once) over 3.35 TB/s and FLOPs (K5: the causal "
+          "4 BH hd S(S+1)/2; K6: S/Q x BH x (Q(Q+1)(N+P) + 4QPN), the "
+          "causal half j <= i) over "
+          "67 TFLOP/s float32 or 989 TFLOP/s bf16; library: "
+          "scaled_dot_product_attention(q, k, v, is_causal=True) on "
+          "(1, BH, S, hd) views (a 4-D input lets it pick its fused "
+          "kernels), CUDA "
+          "events (K6 has no one-call counterpart). The JSON holds the "
+          "first case of each kernel, the kernel-bench width.")
+    return rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -734,6 +1130,7 @@ def main() -> None:
     err = {k: 0.0 for k in _cuda.KERNELS + lm_kernels.KERNELS}
 
     # ---- K1 and K2 against their plain versions on the main path's
+    stamp("K1 and K2 on the main path's 45 families")
     # ---- 45 trace families (paper grid, seeds 0-2, default sizes) ------
     fams = {}
     for seed in (0, 1, 2):
@@ -748,6 +1145,7 @@ def main() -> None:
           f"{sum(f.blocks.numel() for _, f in fams.values())} blocks)")
 
     # ---- K2 at 256 threads and on odd geometries -------------------------
+    stamp("K2 at 256 threads and odd geometries")
     odd = [machines.baseline(16, num_sms=3, num_mem_ctrls=5, l1_ways=3,
                              l1_size_bytes=64 * 3 * 7),
            machines.sw_plus(num_sms=5, num_mem_ctrls=3, l1_ways=5,
@@ -766,6 +1164,7 @@ def main() -> None:
     del small
 
     # ---- the main path ---------------------------------------------------
+    stamp("the study's main path")
     with open(GRID_FILE, encoding="utf-8") as fh:
         ref = json.load(fh)["records"]
     study = api.Study(seeds=(0, 1, 2), engine="cuda")
@@ -818,6 +1217,7 @@ def main() -> None:
               f"[{band['min']:.6f}, {band['max']:.6f}]")
 
     # ---- timing per family (seed 0) ---------------------------------------
+    stamp("K1/K2 timing per family")
     rows = {k: [] for k in _cuda.KERNELS}
     print(f"per-family times, ms per launch [{card}]:")
     print(f"  {'bench':5s} {'units':>5s} {'warps':>6s} {'ops':>7s} "
@@ -870,16 +1270,58 @@ def main() -> None:
               f"a device record")
 
     # ---- the LM kernels and the serve path --------------------------------
+    stamp("K3/K4 checks and the qwen2-moe smoke serve")
     from repro_torch.configs import get_config
     serve_cfg = dataclasses.replace(get_config(SERVE["arch"]),
                                     moe_dispatch="sw_plus")
     lm_kernel_checks(torch, dev, serve_cfg, err)
     golden_serve(torch, dev)
+    stamp("full-width qwen2-moe serve")
     saved, lm_launches = full_width_serve(torch, dev, serve_cfg, card, err)
+    stamp("K3/K4 timing")
     lm_rows = lm_timing(torch, saved, card)
     del saved
+    # Servers hold themselves in closures: collect them, so the qwen2-moe
+    # weights leave the card before the ssm phases measure peak memory.
+    gc.collect()
+    torch.cuda.empty_cache()
     rows.update(lm_rows)
     launches.update(lm_launches)
+
+    # ---- K5, K6, the ssm family and the kernel-bench path ----------------
+    from repro_torch.models import model as model_lib
+    stamp("K5 and K6 checks")
+    flash_cases = flash_checks(torch, dev, err)
+    ssd_cases = ssd_checks(torch, dev, err)
+    stamp("ssm and hybrid smoke serves")
+    for path in SSM_GOLDEN_FILES:
+        golden_serve(torch, dev, path)
+    stamp("full-width mamba2-780m: K6 check and serve")
+    ssm_cfg = get_config(SSM_SERVE["arch"])
+    t0 = time.perf_counter()
+    params = model_lib.init_params(ssm_cfg, seed=SSM_SERVE["seed"],
+                                   device=dev)
+    torch.cuda.synchronize()
+    print(f"full width: {ssm_cfg.name}, {ssm_cfg.n_layers} layers, d_model "
+          f"{ssm_cfg.d_model}, {ssm_cfg.ssm_heads} SSD heads of "
+          f"{ssm_cfg.ssm_headdim}, state {ssm_cfg.ssm_state}, chunk "
+          f"{ssm_cfg.ssm_chunk}, vocab {ssm_cfg.vocab_size} padded to "
+          f"{ssm_cfg.vocab_padded}, {ssm_cfg.dtype}: "
+          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
+          f"parameters, "
+          f"{sum(t.nbytes for t in _leaves(params)) / 1e9:.3f} GB, drawn "
+          f"on the card in {time.perf_counter() - t0:.3f} s")
+    ssd_cases.append(ssd_model_check(torch, dev, ssm_cfg, params, err))
+    full_width_ssm_serve(torch, dev, ssm_cfg, params, card)
+    del params
+    stamp("kernel-bench path")
+    kb_launches = kernel_bench_path(torch, dev, card, err)
+    stamp("K5/K6 timing")
+    rows.update(k5_k6_timing(torch, flash_cases, ssd_cases, card))
+    stamp("done")
+    del flash_cases, ssd_cases
+    for name in ("flash_attention_kernel", "ssd_scan_kernel"):
+        launches[name] = kb_launches[name]
 
     kernels = []
     for name in _cuda.KERNELS + lm_kernels.KERNELS:

@@ -1,10 +1,4 @@
-"""Architecture registry: --arch <id> -> ModelConfig (full or smoke).
-
-The port covers the ``dense`` and ``moe`` families. ``mamba2-780m``
-(``ssm``) and ``hymba-1.5b`` (``hybrid``) need ``models/ssm.py``, which
-comes with a later slice of the port; asking for them raises
-NotImplementedError.
-"""
+"""Architecture registry: --arch <id> -> ModelConfig (full or smoke)."""
 
 from __future__ import annotations
 
@@ -26,9 +20,6 @@ _ARCHS: Dict[str, str] = {
     "hymba-1.5b": "hymba_1_5b",
 }
 
-# Archs whose family needs models/ssm.py, which the port does not have yet.
-NOT_PORTED = {"mamba2-780m": "ssm", "hymba-1.5b": "hybrid"}
-
 
 def list_archs() -> List[str]:
     return list(_ARCHS)
@@ -37,11 +28,6 @@ def list_archs() -> List[str]:
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in _ARCHS:
         raise KeyError(f"unknown arch {arch!r}; have {list_archs()}")
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch!r} is a {NOT_PORTED[arch]!r} model: it needs "
-            "models/ssm.py, which comes with the next slice of the port "
-            "(the kernel_bench path with K5 and K6)")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[arch]}")
     cfg: ModelConfig = mod.SMOKE if smoke else mod.CONFIG
     return cfg.validate()

@@ -1,4 +1,4 @@
-"""Build, binding and launch counts of the LM kernels (K3, K4).
+"""Build, binding and launch counts of the LM kernels (K3-K6).
 
 Each kernel is one ``csrc/*.cu`` file with a plain C interface, built by
 ``nvcc`` for ``sm_90a`` at its first launch (``repro_torch._nvcc``) and
@@ -24,7 +24,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel name -> its source in ``csrc/``.
 SOURCES = {"gather_rows_kernel": "coalesced_gather.cu",
-           "gmm_kernel": "moe_gmm.cu"}
+           "gmm_kernel": "moe_gmm.cu",
+           "flash_attention_kernel": "flash_attention.cu",
+           "ssd_scan_kernel": "ssd_scan.cu"}
 KERNELS = tuple(SOURCES)
 
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -4,8 +4,7 @@
 ``coalesced_gather`` builds the per-destination-row source map and
 launches K3 at every size: the Hopper kernel reads rows straight from
 device memory, so the reference's VMEM budget and its XLA fallback have no
-counterpart here. ``moe_gmm`` launches K4. The flash-attention and SSD
-wrappers come with their kernels (K5, K6) in a later slice.
+counterpart here. ``moe_gmm`` launches K4, ``flash_attention`` K5 and ``ssd_scan`` K6.
 """
 
 from __future__ import annotations
@@ -13,7 +12,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import coalesced_gather as _gather_k
+from repro_torch.kernels import flash_attention as _flash_k
 from repro_torch.kernels import moe_gmm as _gmm_k
+from repro_torch.kernels import ssd_scan as _ssd_k
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
@@ -45,3 +46,17 @@ def coalesced_gather(x: torch.Tensor, src: torch.Tensor, dest: torch.Tensor,
     row_src, row_valid = row_maps(src, dest, t_pad)
     return _gather_k.gather_rows(x, row_src, row_valid, t_pad)
 
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, bq: int = 128,
+                    bkv: int = 128) -> torch.Tensor:
+    """(BH, S, hd) flash attention with (BQ, BKV) tile granularity."""
+    return _flash_k.flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv)
+
+
+def ssd_scan(xdt: torch.Tensor, da: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, chunk: int = 128) -> torch.Tensor:
+    """Mamba2 SSD chunked scan: one block of the kernel per (bh, chunk),
+    the state handed on from chunk to chunk through a float32 scratch."""
+    return _ssd_k.ssd_scan_kernel(xdt, da, b, c, chunk=chunk)

@@ -3,7 +3,7 @@
 The port of ``repro.launch.serve``. A fixed pool of `slots` decode slots
 runs one fused ``decode_step`` per iteration. Finished or empty slots are
 refilled from the request queue (continuous batching): each refill
-prefills the new prompt and splices its KV cache into the slot.
+prefills the new prompt and splices its KV/state cache into the slot.
 
 The reference's behaviour is kept exactly, quirks included, so the two
 generate the same tokens:
@@ -12,11 +12,14 @@ generate the same tokens:
   each decode step; empty slots still decode (their last token) and still
   go through routing;
 * ``_splice_cache`` copies only arrays of rank >= 3 (the layer-stacked
-  k/v), so the cache's ``positions`` vector is not taken from the prefill
-  and decode does not attend to the prompt.
+  k/v, and the SSM's conv_x, conv_bc and h), so the cache's ``positions``
+  vector is not taken from the prefill and decode does not attend to the
+  prompt.
 
 On the card, a MoE config with ``moe_dispatch="sw_plus"`` runs K3 once
-and K4 three times per layer of every prefill and decode step.
+and K4 three times per layer of every prefill and decode step. The
+``ssm`` and ``hybrid`` families launch no kernel of the port, as the
+reference's model path reaches no Pallas kernel there.
 
 Demo on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
@@ -124,9 +127,10 @@ class BatchedServer:
             # One fused decode step for all slots.
             toks = torch.as_tensor(next_tokens[:, None], dtype=torch.int64,
                                    device=self.device)
-            # Align the global cursor with the max slot position; the
-            # position mask makes shorter slots correct.
-            self.cache["kv"]["index"] = int(self.slot_pos.max())
+            if "kv" in self.cache:
+                # Align the global cursor with the max slot position; the
+                # position mask makes shorter slots correct.
+                self.cache["kv"]["index"] = int(self.slot_pos.max())
             logits, self.cache = self._decode(self.params, toks, self.cache)
             steps += 1
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()

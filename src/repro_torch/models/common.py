@@ -105,6 +105,13 @@ class Init:
     def ones(self, shape: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
         return torch.ones(tuple(shape), dtype=dtype, device=self.device)
 
+    def zeros(self, shape: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
+        return torch.zeros(tuple(shape), dtype=dtype, device=self.device)
+
+    def const(self, values, dtype: torch.dtype) -> torch.Tensor:
+        """A fixed tensor (``A_log``'s log-spaced decays), not a draw."""
+        return torch.as_tensor(values, dtype=dtype, device=self.device)
+
 
 def torch_dtype(name: str) -> torch.dtype:
     """``"bfloat16"`` -> ``torch.bfloat16`` (a config's dtype string)."""

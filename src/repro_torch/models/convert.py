@@ -9,8 +9,8 @@ numpy arrays:
   float32 configs the parity checks run).
 * :func:`params_from_numpy` turns such a tree (or the reference's own
   parameters, as numpy arrays) into the port's, on a device, each leaf
-  cast to the dtype the port keeps it in (the router float32, the rest
-  the config's dtype).
+  cast to the dtype the port keeps it in (the router and the SSM's
+  ``A_log``, ``D`` and ``dt_bias`` float32, the rest the config's dtype).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 
 #: Leaves kept in float32 whatever the config's dtype.
-FLOAT32_LEAVES = ("router",)
+FLOAT32_LEAVES = ("router", "A_log", "D", "dt_bias")
 
 
 class NumpyInit:
@@ -52,6 +52,12 @@ class NumpyInit:
 
     def ones(self, shape, dtype=None) -> np.ndarray:
         return np.ones(tuple(shape), dtype=np.float32)
+
+    def zeros(self, shape, dtype=None) -> np.ndarray:
+        return np.zeros(tuple(shape), dtype=np.float32)
+
+    def const(self, values, dtype=None) -> np.ndarray:
+        return np.asarray(values, dtype=np.float32)
 
 
 def _stack(trees):
@@ -126,6 +132,12 @@ class _ShapeInit:
 
     def ones(self, shape, dtype=None):
         return tuple(shape)
+
+    def zeros(self, shape, dtype=None):
+        return tuple(shape)
+
+    def const(self, values, dtype=None):
+        return tuple(np.shape(values))
 
 
 def _shapes(cfg: ModelConfig) -> Dict[str, Any]:

@@ -1,15 +1,19 @@
 """LM assembly: embedding, layers, logits, prefill, decode.
 
-The port of ``repro.models.model`` for the ``dense`` and ``moe`` families.
+The port of ``repro.models.model``. Families:
+
+  dense  : attn + MLP
+  moe    : attn + MoE (paper-technique dispatch, see models/moe.py)
+  ssm    : Mamba2 block only
+  hybrid : parallel attn + SSM heads (Hymba), mean-fused, then MLP
+
 Parameters keep the reference's names and its stacked ``(L, ...)`` layer
 layout, so a tree of the reference's weights carries over leaf for leaf
 (``models.convert``); ``lax.scan`` over that axis becomes a Python loop
-over views of it. The ``ssm`` and ``hybrid`` families need
-``models/ssm.py``, which comes with a later slice, and raise here;
-``train_loss`` comes with the training slice.
+over views of it. ``train_loss`` comes with the training slice.
 
 Everything runs on the device the parameters lie on. Decode updates the
-KV cache it is given in place (the reference returns a new one), which
+cache it is given in place (the reference returns a new one), which
 saves a copy of the whole cache each step; it returns the cache as well,
 so callers read the same as in the reference.
 """
@@ -22,18 +26,21 @@ import torch
 
 from repro_torch.models import attention, common, mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import init_cache
 from repro_torch.models.common import Init
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.ssm import init_ssm_cache
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_ATTN = ("dense", "moe", "hybrid")
+_SSM = ("ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} needs models/ssm.py, which comes with "
-            "the next slice of the port")
+            f"family {cfg.family!r} is not one of {FAMILIES}")
 
 
 def param_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -66,14 +73,18 @@ def init_layer(init, cfg: ModelConfig) -> dict:
     object with its ``dense``/``embed``/``ones`` methods)."""
     _check_family(cfg)
     dt = param_dtype(cfg)
-    p: Dict[str, Any] = {
-        "attn_norm": init.ones((cfg.d_model,), dt),
-        "attn": attention.attn_init(init, cfg, dt),
-        "mlp_norm": init.ones((cfg.d_model,), dt),
-    }
+    p: Dict[str, Any] = {}
+    if cfg.family in _ATTN:
+        p["attn_norm"] = init.ones((cfg.d_model,), dt)
+        p["attn"] = attention.attn_init(init, cfg, dt)
+    if cfg.family in _SSM:
+        p["ssm_norm"] = init.ones((cfg.d_model,), dt)
+        p["ssm"] = ssm_mod.ssm_init(init, cfg, dt)
     if cfg.family == "moe":
+        p["mlp_norm"] = init.ones((cfg.d_model,), dt)
         p["moe"] = moe_mod.moe_init(init, cfg, dt)
-    else:
+    elif cfg.family in ("dense", "hybrid"):
+        p["mlp_norm"] = init.ones((cfg.d_model,), dt)
         p["mlp"] = mlp_mod.mlp_init(init, cfg, dt)
     return p
 
@@ -140,12 +151,21 @@ def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig):
 
 def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        x = x + ssm_mod.ssm_layer(
+            lp["ssm"], common.rms_norm(x, lp["ssm_norm"], cfg.norm_eps), cfg)
+        return x, aux
     h = common.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    x = x + attention.attention(lp["attn"], h, positions, cfg)
-    y, aux = _ffn(lp, x, cfg)
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + y, aux
+    a = attention.attention(lp["attn"], h, positions, cfg)
+    if cfg.family == "hybrid":
+        hs = common.rms_norm(x, lp["ssm_norm"], cfg.norm_eps)
+        s = ssm_mod.ssm_layer(lp["ssm"], hs, cfg)
+        x = x + 0.5 * (a + s)            # parallel heads, mean-fused (Hymba)
+    else:
+        x = x + a
+    y, a2 = _ffn(lp, x, cfg)
+    return x + y, aux if a2 is None else a2
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -195,8 +215,41 @@ def logits_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda") -> dict:
     _check_family(cfg)
-    return {"kv": init_cache(cfg, batch, max_len, param_dtype(cfg),
-                             device)}
+    dt = param_dtype(cfg)
+    cache: Dict[str, Any] = {}
+    if cfg.family in _ATTN:
+        cache["kv"] = init_cache(cfg, batch, max_len, dt, device)
+    if cfg.family in _SSM:
+        cache["ssm"] = init_ssm_cache(cfg, batch, dt, device)
+    return cache
+
+
+def _put_ssm(sc: dict, i: int, conv_x: torch.Tensor, conv_bc: torch.Tensor,
+             h: torch.Tensor) -> None:
+    """Write layer `i`'s SSM decode state into the stacked cache."""
+    sc["conv_x"][i].copy_(conv_x)
+    sc["conv_bc"][i].copy_(conv_bc)
+    sc["h"][i].copy_(h)
+
+
+def _ssm_prefill(lp: dict, h: torch.Tensor, cfg: ModelConfig, sc: dict,
+                 i: int) -> torch.Tensor:
+    """Layer `i`'s SSM block over the prompt; keeps its decode state."""
+    hn = common.rms_norm(h, lp["ssm_norm"], cfg.norm_eps)
+    y, cx, cbc, hstate = ssm_mod.ssm_layer(lp["ssm"], hn, cfg,
+                                           return_cache=True)
+    _put_ssm(sc, i, cx, cbc, hstate)
+    return y
+
+
+def _ssm_decode(lp: dict, h: torch.Tensor, cfg: ModelConfig, sc: dict,
+                i: int) -> torch.Tensor:
+    """Layer `i`'s SSM block for one token; updates its decode state."""
+    hn = common.rms_norm(h, lp["ssm_norm"], cfg.norm_eps)
+    y, cx, cbc, hst = ssm_mod.ssm_decode_step(
+        lp["ssm"], hn, sc["conv_x"][i], sc["conv_bc"][i], sc["h"][i], cfg)
+    _put_ssm(sc, i, cx, cbc, hst)
+    return y
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int
@@ -211,16 +264,20 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int
     b, s = x.shape[:2]
     positions = torch.arange(s, device=dev)
     cache = init_decode_cache(cfg, b, max_len, dev)
-    kv = cache["kv"]
-    # keep the last S_cache tokens, at ring slots pos % S_cache so
-    # decode's write cursor stays consistent
-    s_cache = kv["k"].shape[2]
-    keep = min(s_cache, s)
-    slots = torch.arange(s - keep, s, device=dev) % s_cache
+    kv, sc = cache.get("kv"), cache.get("ssm")
+    if kv is not None:
+        # keep the last S_cache tokens, at ring slots pos % S_cache so
+        # decode's write cursor stays consistent
+        s_cache = kv["k"].shape[2]
+        keep = min(s_cache, s)
+        slots = torch.arange(s - keep, s, device=dev) % s_cache
 
     h = x
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
+        if cfg.family == "ssm":
+            h = h + _ssm_prefill(lp, h, cfg, sc, i)
+            continue
         hn = common.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         q, k, v = attention._project_qkv(lp["attn"], hn, positions, cfg)
         a = attention.flash_attention(q, k, v, positions, positions,
@@ -236,15 +293,19 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int
         else:
             kv["k"][i][:, slots] = k[:, s - keep:]
             kv["v"][i][:, slots] = v[:, s - keep:]
-        h = h + a
+        if cfg.family == "hybrid":
+            h = h + 0.5 * (a + _ssm_prefill(lp, h, cfg, sc, i))
+        else:
+            h = h + a
         y, _ = _ffn(lp, h, cfg)
         h = h + y
     hidden = common.rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = logits_fn(params, cfg, hidden[:, -1:])[:, 0]
 
-    kv["positions"][slots] = torch.arange(s - keep, s, dtype=torch.int32,
-                                          device=dev)
-    kv["index"] = s
+    if kv is not None:
+        kv["positions"][slots] = torch.arange(s - keep, s, dtype=torch.int32,
+                                              device=dev)
+        kv["index"] = s
     return logits, cache
 
 
@@ -254,29 +315,34 @@ def decode_step(params: dict, cfg: ModelConfig,
     """One decode step.
 
     token_or_embed: (B, 1) int tokens or (B, 1, D) embeddings.
-    Returns (logits (B, V_pad) fp32, cache). The cache's k/v (and scales)
-    and positions are updated in place; its index moves on by one.
+    Returns (logits (B, V_pad) fp32, cache). The cache's k/v (and scales),
+    positions and SSM state are updated in place; its index moves on by
+    one.
     """
     _check_family(cfg)
-    kv = cache["kv"]
+    kv, sc = cache.get("kv"), cache.get("ssm")
     if token_or_embed.dim() == 2:
         x = params["embed"][token_or_embed.long()]
     else:
         x = token_or_embed.to(param_dtype(cfg))
-    pos = int(kv["index"])                          # current position
+    pos = int(kv["index"]) if kv is not None else 0   # current position
     if cfg.pos_emb == "sinusoidal":
         pe = common.sinusoidal_pos_emb(
             torch.full((1,), pos, device=x.device), cfg.d_model)
         x = x + pe[None].to(x.dtype)
 
-    s_cache = kv["k"].shape[2]
-    slot = pos % s_cache
-    kv["positions"][slot] = pos
+    if kv is not None:
+        s_cache = kv["k"].shape[2]
+        slot = pos % s_cache
+        kv["positions"][slot] = pos
     dt = param_dtype(cfg)
 
     h = x
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
+        if cfg.family == "ssm":
+            h = h + _ssm_decode(lp, h, cfg, sc, i)
+            continue
         hn = common.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         k1, v1 = attention.decode_kv(lp["attn"], hn, pos, cfg)
         if cfg.kv_cache_dtype == "int8":
@@ -296,11 +362,15 @@ def decode_step(params: dict, cfg: ModelConfig,
             layer_k, layer_v = kv["k"][i], kv["v"][i]
         a = attention.decode_attention(lp["attn"], hn, layer_k, layer_v,
                                        kv["positions"], pos, cfg)
-        h = h + a
+        if cfg.family == "hybrid":
+            h = h + 0.5 * (a + _ssm_decode(lp, h, cfg, sc, i))
+        else:
+            h = h + a
         y, _ = _ffn(lp, h, cfg)
         h = h + y
 
     hidden = common.rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = logits_fn(params, cfg, hidden)[:, 0]
-    kv["index"] = pos + 1
+    if kv is not None:
+        kv["index"] = pos + 1
     return logits, cache

@@ -1,5 +1,6 @@
-"""The port's LM kernels (K3 row gather, K4 grouped matmul) held against
-the reference's Pallas kernels.
+"""The port's LM kernels (K3 row gather, K4 grouped matmul, K5 flash
+attention, K6 SSD chunked scan) held against the reference's Pallas
+kernels.
 
 Inputs come from numpy seeds and go through both packages; JAX runs on
 the CPU with Pallas in interpret mode, as ``tests/test_kernels.py`` runs
@@ -13,6 +14,13 @@ wrappers' checks and the ops layer against the reference:
   rtol 2e-5 for float32 and 2e-2 for bfloat16, atol 8 x rtol, because
   the K sums run in another order than the reference's 128-wide steps
   (and, in bfloat16, the float32 sum is rounded to 8 bits of mantissa).
+* K5 at the reference's own tolerances: 2e-5 for float32 (a softmax over
+  float32 sums in another order) and 3e-2 for bfloat16 (outputs rounded
+  to 8 bits of mantissa).
+* K6 at the reference's own rtol 2e-4 / atol 2e-5, against the
+  reference's kernel and against the sequential recurrence
+  (``ref.ssd_seq_ref``): chunked sums and exps of cumulative sums in
+  another order than one step at a time.
 
 ``gpu``-marked tests hold the CUDA kernels against the plain versions on
 a card and skip without one:
@@ -26,10 +34,12 @@ import pytest
 import torch
 
 from repro_torch.kernels import _lib, ops, ref
-from repro_torch.kernels import coalesced_gather, moe_gmm
+from repro_torch.kernels import coalesced_gather, flash_attention, moe_gmm
+from repro_torch.kernels import ssd_scan
 from repro_torch.models import moe as tmoe
 
 try:
+    import jax
     import jax.numpy as jnp
 
     from repro.kernels import coalesced_gather as rgather
@@ -217,24 +227,159 @@ def test_gmm_checks_shapes():
         moe_gmm.gmm(x, w[:, :16], be, bm=64)
 
 
+# ------------------------------------------------------ K5: flash attention
+
+
+def _qkv(seed, shape):
+    return [_rand(seed + i, shape) for i in range(3)]
+
+
+@pytest.mark.parametrize("bh,s,hd,bq,bkv", [
+    (2, 128, 64, 64, 64),
+    (4, 256, 32, 128, 64),
+    (1, 512, 128, 128, 128),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_reference(bh, s, hd, bq, bkv, causal):
+    q, k, v = _qkv(6, (bh, s, hd))
+    want = rops.flash_attention(*map(jnp.asarray, (q, k, v)), causal=causal,
+                                bq=bq, bkv=bkv)
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal, bq=bq, bkv=bkv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_flash_tile_granularity_invariance():
+    """The tiles of the reference's kernel against the port's one result
+    (its tiling is fixed): each within the reference's tolerance."""
+    q, k, v = _qkv(9, (2, 256, 64))
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v))).numpy()
+    for bq, bkv in [(64, 64), (128, 64), (64, 128), (256, 256)]:
+        want = rops.flash_attention(*map(jnp.asarray, (q, k, v)), bq=bq,
+                                    bkv=bkv)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_flash_bf16_matches_reference():
+    q, k, v = _qkv(12, (2, 128, 64))
+    want = rops.flash_attention(*(_jnp(a, "bfloat16") for a in (q, k, v)))
+    got = ops.flash_attention(*(_torch(a, "bfloat16") for a in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), rtol=3e-2, atol=3e-2)
+
+
+def test_flash_checks_shapes():
+    q = torch.ones((2, 128, 64))
+    with pytest.raises(ValueError, match="must divide"):
+        flash_attention.flash_attention(q[:, :100], q[:, :100], q[:, :100],
+                                        bq=64)
+    with pytest.raises(ValueError, match=r"\(2, Sk, 64\)"):
+        flash_attention.flash_attention(q, q[:, :, :32], q)
+    with pytest.raises(ValueError, match=r"\(BH, S, hd\)"):
+        flash_attention.flash_attention(q[0], q[0], q[0])
+    with pytest.raises(ValueError, match="use cuda or cpu"):
+        flash_attention.flash_attention(q.to("meta"), q.to("meta"),
+                                        q.to("meta"))
+
+
+# ------------------------------------------------------- K6: SSD scan
+
+
+def _ssd_inputs(bh, s, p, n, seed=20):
+    x = _rand(seed, (bh, s, p)) * 0.5
+    da = -np.logaddexp(_rand(seed + 1, (bh, s)), 0.0).astype(np.float32)
+    b = _rand(seed + 2, (bh, s, n)) * 0.3
+    c = _rand(seed + 3, (bh, s, n)) * 0.3
+    return x, da, b, c
+
+
+@pytest.mark.parametrize("bh,s,p,n,q", [
+    (2, 64, 16, 8, 16),
+    (3, 128, 32, 16, 32),
+    (1, 256, 64, 32, 64),
+    (2, 64, 50, 16, 16),        # hymba's odd head width
+])
+def test_ssd_plain_matches_reference_and_sequential(bh, s, p, n, q):
+    args = _ssd_inputs(bh, s, p, n)
+    want = rops.ssd_scan(*map(jnp.asarray, args), chunk=q)
+    got = ops.ssd_scan(*map(torch.from_numpy, args), chunk=q)
+    seq = ref.ssd_seq_ref(*map(torch.from_numpy, args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), seq.numpy(), rtol=2e-4,
+                               atol=2e-5)
+
+
+def test_ssd_seq_ref_matches_reference_oracle():
+    """ssd_seq_ref is the reference test's _ssd_seq_ref, a lax.scan."""
+    x, da, b, c = _ssd_inputs(2, 32, 8, 4, seed=30)
+
+    def step(h, t):
+        xt, dat, bt, ct = t
+        h = h * jnp.exp(dat)[:, None, None] + xt[:, :, None] * bt[:, None, :]
+        return h, jnp.einsum("bn,bpn->bp", ct, h)
+
+    _, ys = jax.lax.scan(step, jnp.zeros((2, 8, 4)),
+                         (jnp.asarray(x).transpose(1, 0, 2),
+                          jnp.asarray(da).T,
+                          jnp.asarray(b).transpose(1, 0, 2),
+                          jnp.asarray(c).transpose(1, 0, 2)))
+    got = ref.ssd_seq_ref(*map(torch.from_numpy, (x, da, b, c)))
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(ys.transpose(1, 0, 2)),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_ssd_chunk_invariance():
+    args = _ssd_inputs(2, 128, 16, 8, seed=24)
+    outs = [ops.ssd_scan(*map(torch.from_numpy, args), chunk=q).numpy()
+            for q in (16, 32, 64, 128)]
+    for o in outs[1:]:
+        np.testing.assert_allclose(outs[0], o, rtol=2e-4, atol=2e-5)
+
+
+def test_ssd_checks_shapes():
+    x = torch.ones((2, 64, 16))
+    da = -torch.ones((2, 64))
+    b = torch.ones((2, 64, 8))
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_scan.ssd_scan_kernel(x, da, b, b, chunk=48)
+    with pytest.raises(ValueError, match=r"da must be \(2, 64\)"):
+        ssd_scan.ssd_scan_kernel(x, da[:, :32], b, b)
+    with pytest.raises(ValueError, match=r"\(BH, S\)"):
+        ssd_scan.ssd_scan_kernel(x, da[None], b, b)
+    with pytest.raises(ValueError, match="use cuda or cpu"):
+        ssd_scan.ssd_scan_kernel(x.to("meta"), da.to("meta"), b.to("meta"),
+                                 b.to("meta"), chunk=16)
+
+
 # ----------------------------------------------- build, launch, no fallback
 
 
 def test_launch_counts_reset_and_cover_both_kernels():
     _lib.reset_launch_counts()
-    assert _lib.KERNELS == ("gather_rows_kernel", "gmm_kernel")
+    assert _lib.KERNELS == ("gather_rows_kernel", "gmm_kernel",
+                            "flash_attention_kernel", "ssd_scan_kernel")
     assert {k: _lib.launch_count(k) for k in _lib.KERNELS} == {
-        "gather_rows_kernel": 0, "gmm_kernel": 0}
+        k: 0 for k in _lib.KERNELS}
     # The plain versions on the CPU are not launches.
     ops.moe_gmm(torch.ones((64, 8)), torch.ones((1, 8, 8)),
                 torch.zeros(1, dtype=torch.int32), block=64)
     ops.coalesced_gather(torch.ones((2, 8)), torch.tensor([1]),
                          torch.tensor([0]), 64)
-    assert _lib.launch_count("gmm_kernel") == 0
-    assert _lib.launch_count("gather_rows_kernel") == 0
+    ops.flash_attention(torch.ones((1, 8, 8)), torch.ones((1, 8, 8)),
+                        torch.ones((1, 8, 8)))
+    ops.ssd_scan(torch.ones((1, 8, 4)), -torch.ones((1, 8)),
+                 torch.ones((1, 8, 2)), torch.ones((1, 8, 2)), chunk=8)
+    assert {k: _lib.launch_count(k) for k in _lib.KERNELS} == {
+        k: 0 for k in _lib.KERNELS}
 
 
-@pytest.mark.parametrize("kernel", ["gather_rows_kernel", "gmm_kernel"])
+@pytest.mark.parametrize("kernel", ["gather_rows_kernel", "gmm_kernel",
+                                    "flash_attention_kernel",
+                                    "ssd_scan_kernel"])
 def test_failed_build_raises(tmp_path, monkeypatch, kernel):
     monkeypatch.setattr(_lib, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_lib, "_nvcc", lambda: shutil.which("false"))
@@ -311,3 +456,37 @@ def test_gmm_kernel_within_tolerance_on_card(card, m, k, n, e, bm, dtype):
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol * 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,s,hd", [(2, 128, 64), (4, 256, 32),
+                                     (1, 512, 128), (3, 100, 40)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_within_tolerance_on_card(card, bh, s, hd, causal,
+                                               dtype):
+    """The reference's shapes, and ragged S and hd (3, 100, 40)."""
+    q, k, v = (torch.from_numpy(a).to(card, dtype)
+               for a in _qkv(6, (bh, s, hd)))
+    before = _lib.launch_count("flash_attention_kernel")
+    got = flash_attention.flash_attention(q, k, v, causal=causal, bq=s,
+                                          bkv=s)
+    torch.cuda.synchronize()
+    assert _lib.launch_count("flash_attention_kernel") == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,s,p,n,q", [
+    (2, 64, 16, 8, 16), (3, 128, 32, 16, 32), (1, 256, 64, 32, 64),
+    (2, 64, 50, 16, 16), (2, 512, 64, 128, 256)])
+def test_ssd_kernel_within_tolerance_on_card(card, bh, s, p, n, q):
+    args = [torch.from_numpy(a).to(card) for a in _ssd_inputs(bh, s, p, n)]
+    before = _lib.launch_count("ssd_scan_kernel")
+    got = ssd_scan.ssd_scan_kernel(*args, chunk=q)
+    torch.cuda.synchronize()
+    assert _lib.launch_count("ssd_scan_kernel") == before + 1
+    for want in (ref.ssd_scan_ref(*args, q), ref.ssd_seq_ref(*args)):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
