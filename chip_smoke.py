@@ -32,8 +32,10 @@
 8. Holds K3 (exactly) and K4 (rtol 2e-5 / 2e-2, atol 8 x rtol, float32 /
    bfloat16: the reference's own tolerances) against their plain versions
    at the serve path's shapes (bf16; decode T = 4, t_pad = 8192; prefill
-   T = 31, t_pad = 8320; w1/w3 and w2) and at small odd shapes in float32
-   and bfloat16.
+   T = 31, t_pad = 8320; w1/w3 and w2; every row and with the path's
+   ``n_rows``) and at small odd shapes in float32 and bfloat16, through
+   both of K4's routes (bf16 on the tensor cores; float32, and bf16 at a K
+   and N that are not multiples of 8, on the CUDA cores).
 9. Serves the ``qwen2-moe-a2.7b`` smoke config in float32 with
    ``moe_dispatch="sw_plus"`` on numpy-seeded weights and holds its tokens
    (exactly) and every step's logits (rtol 1e-4, atol 1e-4) against the
@@ -43,17 +45,26 @@
    ``qwen2-moe-a2.7b`` (24 layers, bf16, SW+ dispatch, random weights
    from seed 0), 8 requests, 4 slots, 16 new tokens each, with the launch
    counts set to 0 just before and read just after: K3 must have run 24
-   and K4 72 times per prefill and decode step. Layer 0's K3 and K4
-   inputs of one prefill and one decode step are kept and the kernels
-   held against their plain versions on them. A second, traced run of the
-   same requests gives its wall time, device busy time, idle share and
-   top device operations.
+   and K4 72 times per prefill and decode step, every K4 launch by the
+   tensor-core route. Layer 0's K3 and K4 inputs (``n_rows`` included) of
+   one prefill and one decode step are kept and the kernels held against
+   their plain versions on them. A second, traced run of the
+   same requests gives its wall time, device busy time (the device
+   records of the trace: kernels, copies and sets), idle share and top
+   device records.
 11. Times K3 and K4 on those inputs (torch.profiler device time as the
    JSON ``ms``; CUDA events printed apart), beside the plain version, the
-   bound and one PyTorch library call computing the same function.
-12. Holds K5 against ``flash_attention_ref`` (the reference's test shapes,
-   causal and not, float32 at 2e-5; its four tile sizes; bf16 at 3e-2;
-   ragged S and hd; the two timing shapes) and K6 against
+   bound (K4's over the rows below ``n_rows``) and one PyTorch library
+   call computing the same function (for K4 ``torch._grouped_mm``, with
+   its group offsets ending at ``n_rows`` and, printed beside it, at every
+   row), timed by torch.profiler device time as the kernels are (CUDA
+   events printed apart), and the route each case took; the decode w1
+   launch also over every row (what the skip saves) and, cast to float32,
+   through K4's CUDA-core route.
+12. Holds K5 against ``flash_attention_ref`` in both routes (the
+   reference's test shapes, causal and not, float32 at 2e-5 and bf16 at
+   3e-2; its four tile sizes; ragged S and hd; the two timing shapes) and
+   K6 against
    ``ssd_scan_ref`` and ``ssd_seq_ref`` (rtol 2e-4, atol 2e-5: the
    reference's test shapes, chunks 16-128, P 50 / N 16, the kernel-bench
    shape).
@@ -73,7 +84,7 @@
    counts set to 0 just before and read just after: K5, K4 and K6 must
    each launch. Prints its rows.
 16. Times K5 and K6 as in 11, beside their plain versions, bounds and, for
-   K5, ``scaled_dot_product_attention``.
+   K5, ``scaled_dot_product_attention``, with K5's route.
 
 Prints one JSON object of kernel records on the line before the last and
 ``{"ok": true, "device": ...}`` as the last line. Exits non-zero, printing
@@ -136,11 +147,13 @@ SSM_SERVE = dict(SERVE, arch="mamba2-780m")
 # K5 at the reference's tolerances (tests/test_kernels.py), by dtype name;
 # K6 at its rtol / atol.
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
-# K5 in bf16 at S 2048 (rtol, atol): both sides sum in float32 on the same
-# bf16 inputs, so they may differ by the output's rounding, at most one
-# bf16 ulp (2^-7 relative). The reference's 3e-2 is about as large as a
-# typical output there (|o| ~ sqrt(e / S) ~ 0.04) and would let a dropped
-# KV tile pass.
+# K5 in bf16 at S 2048 (rtol, atol): the plain version sums in float32 on
+# the bf16 inputs; the kernel sums in float32 too, but rounds each softmax
+# weight P to bf16 before the P V product (about 2^-9 relative per weight,
+# errors that average out over the 2048 keys), and rounds the output to
+# bf16 (at most one ulp, 2^-7 relative). Both stay far inside 4e-3 at
+# |o| ~ sqrt(e / S) ~ 0.04. The reference's 3e-2 is about as large as a
+# typical output there and would let a dropped KV tile pass.
 FLASH_LONG_BF16_TOL = (8e-3, 4e-3)
 SSD_TOL = (2e-4, 2e-5)
 SSD_PROMPT = 4096          # tokens of the full-width K6 check
@@ -209,9 +222,43 @@ def bound_ms(byts, ops, peak_ops=PEAK_OPS_PER_S):
                                        else "operations")
 
 
+def _on_device(evt) -> bool:
+    """A record of work on the card (a kernel, copy or set), not a CPU
+    operator: the operators' self device time repeats their kernels'."""
+    return str(getattr(evt, "device_type", "")).endswith("CUDA")
+
+
+def _filler(torch, pad):
+    """25 ms of cheap launches that frame a timed window in a trace."""
+    t_end = time.perf_counter() + 0.025
+    while time.perf_counter() < t_end:
+        pad.add_(1.0)
+        torch.cuda.synchronize()
+
+
+_FILLER_KEYS = []
+
+
+def filler_keys(torch):
+    """Names of the device records the filler makes (traced once)."""
+    from torch.profiler import ProfilerActivity, profile
+    if not _FILLER_KEYS:
+        pad = torch.zeros(1, device="cuda")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _filler(torch, pad)
+        _FILLER_KEYS.extend(evt.key for evt in prof.key_averages()
+                            if _on_device(evt))
+    return set(_FILLER_KEYS)
+
+
 def profiled_ms(torch, fn, kernel, reps, attempts=5):
-    """Mean device time per launch of `kernel` over `reps` calls of `fn`,
-    from torch.profiler, averaged over the device records the trace holds.
+    """Mean device time of `kernel` per launch over `reps` calls of `fn`,
+    from torch.profiler, averaged over the device records the trace holds;
+    with `kernel` None, the device time of every record but the filler's,
+    per call (a library call that launches more than one kernel).
     A trace keeps only part of its kernels' device records, the same part
     each time (on an H100: 28 of 40 K3 launches; none of five K4 launches
     of 2.2 ms each), so
@@ -220,12 +267,7 @@ def profiled_ms(torch, fn, kernel, reps, attempts=5):
     `attempts` traces are taken; None when none has a record of `kernel`."""
     from torch.profiler import ProfilerActivity, profile
     pad = torch.zeros(1, device="cuda")
-
-    def filler():
-        t_end = time.perf_counter() + 0.025
-        while time.perf_counter() < t_end:
-            pad.add_(1.0)
-            torch.cuda.synchronize()
+    skip = filler_keys(torch) if kernel is None else set()
 
     for _ in range(attempts):
         with warnings.catch_warnings():
@@ -233,14 +275,18 @@ def profiled_ms(torch, fn, kernel, reps, attempts=5):
             warnings.simplefilter("ignore", UserWarning)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                filler()
+                _filler(torch, pad)
                 for _ in range(reps):
                     fn()
-                filler()
+                _filler(torch, pad)
                 torch.cuda.synchronize()
         total, count = 0.0, 0
         for evt in prof.key_averages():
-            if kernel in evt.key:
+            if kernel is None:
+                if _on_device(evt) and evt.key not in skip:
+                    total += getattr(evt, "self_device_time_total", 0.0)
+                    count = reps
+            elif kernel in evt.key:
                 total += getattr(evt, "device_time_total",
                                  getattr(evt, "cuda_time_total", 0.0))
                 count += evt.count
@@ -251,8 +297,9 @@ def profiled_ms(torch, fn, kernel, reps, attempts=5):
 
 def profiled_run(torch, fn):
     """Run `fn` once under torch.profiler. Returns the run's wall time (s,
-    host clock, ending in a synchronize) and its device time (ms) by kernel
-    or copy name (self times, so nothing is counted twice)."""
+    host clock, ending in a synchronize) and its device time (ms) by the
+    name of each kernel, copy or set on the card (device records only: a
+    CPU operator's self device time repeats its kernels')."""
     from torch.profiler import ProfilerActivity, profile
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
@@ -266,7 +313,7 @@ def profiled_run(torch, fn):
     for evt in prof.key_averages():
         t = getattr(evt, "self_device_time_total",
                     getattr(evt, "self_cuda_time_total", 0.0))
-        if t > 0:
+        if t > 0 and _on_device(evt):
             out[evt.key] = out.get(evt.key, 0.0) + t / 1e3
     return wall, out
 
@@ -343,10 +390,16 @@ def check_exact(torch, name, got, want, err):
         fail(f"{name} differs from its plain version (max {d.max().item()})")
 
 
-def check_gmm(torch, ref, gmm, x, w, be, bm, err):
+def check_gmm(torch, ref, gmm, x, w, be, bm, err, n_rows=None):
+    """K4 against gmm_ref (with `n_rows`, whose rows past it must be exactly
+    zero); returns the route the launch took."""
     tol = GMM_RTOL[str(x.dtype).replace("torch.", "")]
-    check_close(torch, "gmm_kernel", gmm.gmm(x, w, be, bm),
-                ref.gmm_ref(x, w, be, bm), tol, 8 * tol, err)
+    got = gmm.gmm(x, w, be, bm, n_rows)
+    check_close(torch, "gmm_kernel", got, ref.gmm_ref(x, w, be, bm, n_rows),
+                tol, 8 * tol, err)
+    if n_rows is not None and bool((got[int(n_rows):] != 0).any()):
+        fail(f"K4 wrote non-zero rows at or past n_rows {int(n_rows)}")
+    return gmm.route(x, w)
 
 
 def lm_kernel_checks(torch, dev, cfg, err):
@@ -374,26 +427,40 @@ def lm_kernel_checks(torch, dev, cfg, err):
                                           device=dev)[:k]
                            for _ in range(t)])
         order, dest, be, t_pad = moe_mod.sort_by_expert(idx, e, 128)
+        n_rows = moe_mod.group_rows(idx, e, 128)
         x = randn(t, d)
         row_src, row_valid = ops.row_maps(order // k, dest, t_pad)
         xs = cg.gather_rows(x, row_src, row_valid, t_pad)
         check_exact(torch, "gather_rows_kernel", xs,
                     ref.gather_rows_ref(x, row_src, row_valid, t_pad), err)
         dense = randn(t_pad, d)          # every row filled, same block map
-        check_gmm(torch, ref, gmm, xs, w1, be, 128, err)
-        check_gmm(torch, ref, gmm, dense, w1, be, 128, err)
-        check_gmm(torch, ref, gmm, randn(t_pad, f), w2, be, 128, err)
+        routes = set()
+        for nr in (None, n_rows):
+            routes.add(check_gmm(torch, ref, gmm, xs, w1, be, 128, err, nr))
+            routes.add(check_gmm(torch, ref, gmm, dense, w1, be, 128, err,
+                                 nr))
+            routes.add(check_gmm(torch, ref, gmm, randn(t_pad, f), w2, be,
+                                 128, err, nr))
         print(f"K3 == plain, K4 ~ plain at the {label} shapes: T {t}, t_pad "
               f"{t_pad}, x_sorted ({t_pad}, {d}) bf16, w1/w3 ({e}, {d}, "
               f"{f}), w2 ({e}, {f}, {d}), {int(row_valid.sum())} rows "
-              f"filled")
+              f"filled, every row and n_rows {int(n_rows)}; K4 route "
+              f"{sorted(routes)}")
+    routes = {}
     for dtype in (torch.float32, bf16):
         for m, k, n, e, bm in ((256, 96, 80, 4, 64), (128, 64, 64, 2, 64),
-                               (512, 128, 256, 8, 128)):
+                               (512, 128, 256, 8, 128),
+                               (512, 136, 264, 8, 128),
+                               (256, 60, 76, 4, 64)):
             be = torch.randint(0, e, (m // bm,), generator=g, device=dev,
                                dtype=torch.int32)
-            check_gmm(torch, ref, gmm, randn(m, k, dtype=dtype),
-                      randn(e, k, n, dtype=dtype, scale=0.1), be, bm, err)
+            x, w = randn(m, k, dtype=dtype), randn(e, k, n, dtype=dtype,
+                                                   scale=0.1)
+            for nr in (None, torch.tensor(bm + bm // 2, dtype=torch.int32,
+                                          device=dev)):
+                way = check_gmm(torch, ref, gmm, x, w, be, bm, err, nr)
+                routes.setdefault(way, set()).add(
+                    (m, k, n, str(dtype)[6:]))
         for t, d, tp in ((200, 48, 256), (64, 32, 128), (5, 3, 64)):
             x = randn(t, d, dtype=dtype)
             row_src = torch.randint(0, t, (tp,), generator=g, device=dev,
@@ -405,8 +472,11 @@ def lm_kernel_checks(torch, dev, cfg, err):
                         ref.gather_rows_ref(x, row_src, row_valid, tp), err)
     torch.cuda.synchronize()
     print("K3 == plain and K4 ~ plain at small odd shapes (float32, bf16): "
-          "gmm (256, 96, 80, 4 experts, bm 64) and two more; gathers with "
-          "unfilled rows, rows of 3 elements")
+          "gmm (256, 96, 80, 4 experts, bm 64) and four more, every row and "
+          "n_rows mid-block; gathers with unfilled rows, rows of 3 "
+          "elements")
+    for way, cases in sorted(routes.items()):
+        print(f"  K4 route {way}: {sorted(cases)}")
 
 
 def record_logits(server, log):
@@ -515,12 +585,13 @@ class KernelRecorder:
         self.calls["gather"] += 1
         return self.orig[0](x, row_src, row_valid, t_pad)
 
-    def gmm_call(self, x, w, be, bm=128):
+    def gmm_call(self, x, w, be, bm=128, n_rows=None):
         rec = self.saved.get(self.kind)
         if rec is not None and self.calls["gmm"] < 3 and len(rec["gmm"]) < 3:
-            rec["gmm"].append((x.clone(), w, be.clone(), bm))
+            rec["gmm"].append((x.clone(), w, be.clone(), bm,
+                               None if n_rows is None else n_rows.clone()))
         self.calls["gmm"] += 1
-        return self.orig[1](x, w, be, bm)
+        return self.orig[1](x, w, be, bm, n_rows)
 
     def __enter__(self):
         self.cg.gather_rows, self.gmm.gmm = self.gather_rows, self.gmm_call
@@ -538,6 +609,7 @@ def full_width_serve(torch, dev, cfg, card, err):
     from repro_torch.kernels import coalesced_gather as cg
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ref
+    from repro_torch.kernels import _lib as lm_lib
     from repro_torch.launch import serve
     from repro_torch.models import model as model_lib
 
@@ -566,6 +638,7 @@ def full_width_serve(torch, dev, cfg, card, err):
         kernels.reset_launch_counts()
         stats = server.run(reqs)
         launches = {k: kernels.launch_count(k) for k in kernels.KERNELS}
+        tc = lm_lib.route_count("gmm_kernel", "tensor_cores")
     peak = torch.cuda.max_memory_allocated(dev)
     forwards = stats["requests"] + stats["decode_steps"]   # prefills + steps
     want = dict({k: 0 for k in kernels.KERNELS},
@@ -574,6 +647,9 @@ def full_width_serve(torch, dev, cfg, card, err):
     if launches != want:
         fail(f"serve path launches {launches}, expected {want} "
              f"({forwards} forwards of {cfg.n_layers} layers)")
+    if tc != want["gmm_kernel"]:
+        fail(f"{tc} of the serve path's {want['gmm_kernel']} K4 launches "
+             f"took the tensor-core route")
     if rec.bad_shape or not rec.finite.item():
         fail(f"serve path logits not finite or misshaped {rec.bad_shape}")
     for r in reqs:
@@ -585,7 +661,7 @@ def full_width_serve(torch, dev, cfg, card, err):
           f"slots, {stats['requests']} prefills + {stats['decode_steps']} "
           f"decode steps, {stats['total_new_tokens']} new tokens; launches "
           f"{launches} == {cfg.n_layers} and {3 * cfg.n_layers} per "
-          f"forward")
+          f"forward; K4 by the tensor-core route: {tc}")
     print(f"serve path wall {stats['wall_s']:.3f} s, "
           f"{stats['tokens_per_s']:.3f} new tokens/s, peak memory "
           f"{peak / 1e9:.3f} GB (max_memory_allocated) [{card}]")
@@ -598,10 +674,11 @@ def full_width_serve(torch, dev, cfg, card, err):
         check_exact(torch, "gather_rows_kernel",
                     cg.gather_rows(x, row_src, row_valid, t_pad),
                     ref.gather_rows_ref(x, row_src, row_valid, t_pad), err)
-        for xg, w, be, bm in saved["gmm"]:
-            check_gmm(torch, ref, gmm, xg, w, be, bm, err)
-        print(f"  layer 0, {kind} (T {x.shape[0]}, t_pad {t_pad}): K3 == "
-              f"plain, K4 ~ plain on the recorded w1, w3, w2 launches")
+        for xg, w, be, bm, n_rows in saved["gmm"]:
+            check_gmm(torch, ref, gmm, xg, w, be, bm, err, n_rows)
+        print(f"  layer 0, {kind} (T {x.shape[0]}, t_pad {t_pad}, n_rows "
+              f"{int(saved['gmm'][0][4])}): K3 == plain, K4 ~ plain on the "
+              f"recorded w1, w3, w2 launches")
 
     # ---- a second run of the same requests, traced ----------------------
     server2 = serve.BatchedServer(cfg, params, SERVE["slots"],
@@ -632,43 +709,62 @@ def _leaves(tree):
             yield v
 
 
-def gmm_library(torch, x, w, be, bm, want):
-    """One PyTorch call computing K4's function, and how: torch._grouped_mm
-    where this PyTorch has it for bf16, else torch.bmm over
-    w.index_select(0, block_expert) (the select inside the timed call)."""
+def gmm_library(torch, x, w, be, bm, n_rows, want):
+    """One PyTorch call computing K4's function, and how:
+    torch._grouped_mm where this PyTorch has it for bf16, its group offsets
+    from the block map, else torch.bmm over w.index_select(0,
+    block_expert) (the select inside the timed call). Returns (the call
+    over the blocks below n_rows, the blocks K4 computes; the call over
+    every block; how), each checked against `want` (gmm_ref over every
+    row) on the rows it computes."""
     e = w.shape[0]
-    offs = (torch.bincount(be.long(), minlength=e) * bm).cumsum(0).to(
-        torch.int32)
+    rows = int(n_rows)
+    nb = rows // bm
     tol = GMM_RTOL["bfloat16"]
+
+    def offs(blocks):
+        return (torch.bincount(blocks.long(), minlength=e) * bm).cumsum(
+            0).to(torch.int32)
+
+    def agrees(out, upto):
+        d = (out[:upto].float() - want[:upto].float()).abs()
+        return out.shape == want.shape and not (
+            d > 8 * tol + tol * want[:upto].float().abs()).any().item()
+
     candidates = []
     if hasattr(torch, "_grouped_mm"):
         wt = w.transpose(-2, -1).contiguous().transpose(-2, -1)
+        o_skip, o_full = offs(be[:nb]), offs(be)
         candidates = [
-            ("torch._grouped_mm(x, w, offs)",
-             lambda: torch._grouped_mm(x, w, offs=offs)),
+            ("torch._grouped_mm(x, w, offs)", w),
             ("torch._grouped_mm(x, w, offs), w column-major (copied once, "
-             "outside the timing)",
-             lambda: torch._grouped_mm(x, wt, offs=offs))]
-    for route, fn in candidates:
+             "outside the timing)", wt)]
+    for route, ww in candidates:
+        def skip(ww=ww):
+            return torch._grouped_mm(x, ww, offs=o_skip)
+
+        def full(ww=ww):
+            return torch._grouped_mm(x, ww, offs=o_full)
         try:
-            out = fn()
+            ok = agrees(skip(), rows) and agrees(full(), x.shape[0])
             torch.cuda.synchronize()
         except RuntimeError as exc:
             print(f"  {route}: refused ({str(exc).splitlines()[0][:90]})")
             continue
-        d = (out.float() - want.float()).abs()
-        if out.shape == want.shape and not (
-                d > 8 * tol + tol * want.float().abs()).any().item():
-            return fn, route
-        print(f"  {route}: disagrees with the plain version (max "
-              f"{d.max().item()}); not used")
-    nb = x.shape[0] // bm
+        if ok:
+            return skip, full, route
+        print(f"  {route}: disagrees with the plain version; not used")
     bel = be.long()
 
-    def bmm():
-        return torch.bmm(x.view(nb, bm, -1), w.index_select(0, bel))
-    return bmm, ("torch.bmm over w.index_select(0, block_expert), select "
-                 "inside the timing")
+    def bmm_skip():
+        return torch.bmm(x[:rows].view(nb, bm, -1),
+                         w.index_select(0, bel[:nb]))
+
+    def bmm_full():
+        return torch.bmm(x.view(x.shape[0] // bm, bm, -1),
+                         w.index_select(0, bel))
+    return bmm_skip, bmm_full, ("torch.bmm over w.index_select(0, "
+                                "block_expert), select inside the timing")
 
 
 def lm_timing(torch, saved, card):
@@ -677,7 +773,9 @@ def lm_timing(torch, saved, card):
     from repro_torch.kernels import coalesced_gather as cg
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ref
-    k3_cases, k4_cases = [], []        # (label, shape, fn, plain, lib, bound)
+    # (label, shape, fn, plain, library, library over every row, bound,
+    # route, in the JSON)
+    k3_cases, k4_cases = [], []
     for kind in ("decode", "prefill"):
         x, row_src, row_valid, t_pad = saved[kind]["gather"]
         t, d = x.shape
@@ -689,60 +787,122 @@ def lm_timing(torch, saved, card):
                 cg.gather_rows(x, s, v, n),
             lambda x=x, s=row_src, v=row_valid, n=t_pad:
                 ref.gather_rows_ref(x, s, v, n),
-            lambda x=x, s=row_src: x.index_select(0, s),
-            bound_ms(byts, 0)))
-        for name, (xg, w, be, bm) in zip(("w1", "w3", "w2"),
-                                         saved[kind]["gmm"]):
+            lambda x=x, s=row_src: x.index_select(0, s), None,
+            bound_ms(byts, 0), "-", kind == "decode"))
+        for name, (xg, w, be, bm, n_rows) in zip(("w1", "w3", "w2"),
+                                                 saved[kind]["gmm"]):
             m, kk = xg.shape
             e, _, n = w.shape
-            distinct = len(set(be.tolist()))
+            rows = int(n_rows)
+            distinct = len(set(be[:rows // bm].tolist()))
             item = xg.element_size()
-            byts = (m * kk * item + distinct * kk * n * item + 4 * be.numel()
-                    + m * n * item)
+            # x rows below n_rows and the weights of the experts their
+            # blocks name, read once; every output row written once.
+            byts = (rows * kk * item + distinct * kk * n * item
+                    + 4 * be.numel() + 4 + m * n * item)
             want = ref.gmm_ref(xg, w, be, bm)
-            lib_fn, route = gmm_library(torch, xg, w, be, bm, want)
+            lib_skip, lib_full, how = gmm_library(torch, xg, w, be, bm,
+                                                  n_rows, want)
             del want
             if kind == "decode" and name == "w1":
-                print(f"K4 library call: {route}")
+                print(f"K4 library call: {how}")
             k4_cases.append((
                 f"K4 {kind} {name}",
-                f"({m}, {kk}) @ ({e}, {kk}, {n}), {distinct} exp",
-                lambda xg=xg, w=w, be=be, bm=bm: gmm.gmm(xg, w, be, bm),
-                lambda xg=xg, w=w, be=be, bm=bm: ref.gmm_ref(xg, w, be, bm),
-                lib_fn,
-                bound_ms(byts, 2 * m * kk * n, PEAK_BF16_OPS_PER_S)))
+                f"({m}, {kk}) @ ({e}, {kk}, {n}), n_rows {rows}, {distinct} "
+                f"exp",
+                lambda xg=xg, w=w, be=be, bm=bm, r=n_rows:
+                    gmm.gmm(xg, w, be, bm, r),
+                lambda xg=xg, w=w, be=be, bm=bm, r=n_rows:
+                    ref.gmm_ref(xg, w, be, bm, r),
+                lib_skip, lib_full,
+                bound_ms(byts, 2 * rows * kk * n, PEAK_BF16_OPS_PER_S),
+                gmm.route(xg, w), kind == "decode"))
+
+    # The decode w1 launch again over every row (what the skip saves), and
+    # K4's CUDA-core route on it in float32; printed, not in the JSON.
+    xg, w, be, bm, n_rows = saved["decode"]["gmm"][0]
+    m, kk = xg.shape
+    e, _, n = w.shape
+    item = xg.element_size()
+    k4_cases.append((
+        "K4 decode w1 all", f"({m}, {kk}) @ ({e}, {kk}, {n}), every row, "
+        f"{len(set(be.tolist()))} exp",
+        lambda: gmm.gmm(xg, w, be, bm),
+        lambda: ref.gmm_ref(xg, w, be, bm), k4_cases[0][5], None,
+        bound_ms(item * (m * kk + len(set(be.tolist())) * kk * n + m * n)
+                 + 4 * be.numel(), 2 * m * kk * n, PEAK_BF16_OPS_PER_S),
+        gmm.route(xg, w), False))
+    xf, wf = xg.float(), w.float()
+    rows32 = int(n_rows)
+    m, kk = xf.shape
+    e, _, n = wf.shape
+    distinct = len(set(be[:rows32 // bm].tolist()))
+    want = ref.gmm_ref(xf, wf, be, bm)
+    lib_skip, lib_full, _how = gmm_library(torch, xf, wf, be, bm, n_rows,
+                                           want)
+    del want
+    k4_cases.append((
+        "K4 decode w1 fp32", f"({m}, {kk}) @ ({e}, {kk}, {n}), n_rows "
+        f"{rows32}, {distinct} exp",
+        lambda: gmm.gmm(xf, wf, be, bm, n_rows),
+        lambda: ref.gmm_ref(xf, wf, be, bm, n_rows), lib_skip, lib_full,
+        bound_ms(4 * (rows32 * kk + distinct * kk * n + m * n)
+                 + 4 * be.numel() + 4, 2 * rows32 * kk * n,
+                 PEAK_FP32_OPS_PER_S),
+        gmm.route(xf, wf), False))
 
     rows = {}
     print(f"LM kernel times on the serve path's layer-0 inputs, ms per "
           f"launch [{card}]:")
-    print(f"  {'launch':18s} {'shape':40s} {'dev':>8s} {'ev':>8s} "
-          f"{'plain':>8s} {'bound':>8s} {'by':>5s} {'library':>8s}")
+    print(f"  {'launch':18s} {'shape':52s} {'dev':>8s} {'ev':>8s} "
+          f"{'plain':>8s} {'bound':>8s} {'by':>5s} {'library':>8s} "
+          f"{'lib ev':>8s} {'lib all':>8s}  route")
     for kernel, cases, reps in (("gather_rows_kernel", k3_cases, 20),
                                 ("gmm_kernel", k4_cases, 10)):
         rows[kernel] = []
-        for label, shape, fn, plain_fn, lib_fn, (bnd, by) in cases:
-            fn()                                   # warm-up
+        for label, shape, fn, plain_fn, lib_fn, lib_all_fn, (bnd, by), \
+                way, in_json in cases:
+            for warm in (fn, plain_fn, lib_fn, lib_all_fn):
+                if warm is not None:
+                    warm()
             torch.cuda.synchronize()
             dev_ms = profiled_ms(torch, fn, kernel, reps)
             if dev_ms is None:
                 fail(f"torch.profiler recorded no device time for {label}")
             ev = event_ms(torch, fn, reps)
             plain = event_ms(torch, plain_fn, min(reps, 3))
-            lib = event_ms(torch, lib_fn, reps)
-            print(f"  {label:18s} {shape:40s} {dev_ms:8.4f} {ev:8.4f} "
-                  f"{plain:8.4f} {bnd:8.5f} {by[:5]:>5s} {lib:8.4f}")
-            if "decode" in label:
+            lib = profiled_ms(torch, lib_fn, None, reps)
+            lib_ev = event_ms(torch, lib_fn, reps)
+            lib_all = (profiled_ms(torch, lib_all_fn, None, reps)
+                       if lib_all_fn else None)
+            if lib is None or (lib_all_fn and lib_all is None):
+                fail(f"torch.profiler recorded no device time for the "
+                     f"library call of {label}")
+            print(f"  {label:18s} {shape:52s} {dev_ms:8.4f} {ev:8.4f} "
+                  f"{plain:8.4f} {bnd:8.5f} {by[:5]:>5s} {lib:8.4f} "
+                  f"{lib_ev:8.4f} "
+                  f"{'-' if lib_all is None else f'{lib_all:8.4f}':>8s}  "
+                  f"{way}")
+            if in_json:
                 rows[kernel].append((dev_ms, plain, bnd, by, lib))
     print("  dev: torch.profiler device time (the JSON ms), one trace per "
           "case; ev: CUDA events over back-to-back "
           "wrapper calls, launch overhead included; plain: gather_rows_ref / "
-          "gmm_ref (float32) on the card, CUDA events; bound: the larger of "
-          "bytes (each input read once, output written once; K4's weights "
-          "counted for the distinct experts the block map names) over "
-          "3.35 TB/s and bf16 FLOPs over 989 TFLOP/s; library: "
-          "x.index_select(0, row_src) for K3, the call above for K4, CUDA "
-          "events. The JSON holds the decode step's launches (the most "
-          "frequent shape on the path); K4's is the mean of w1, w3, w2.")
+          "gmm_ref (float32, with n_rows) on the card, CUDA events; bound: "
+          "the larger of bytes (each input read once, output written once; "
+          "K4's x rows and FLOPs counted below n_rows, its weights for the "
+          "distinct experts the block map names there) over 3.35 TB/s and "
+          "bf16 FLOPs over 989 TFLOP/s; library: x.index_select(0, row_src) "
+          "for K3, the call above for K4 with its group offsets ending at "
+          "n_rows (the blocks K4 computes), torch.profiler device time per "
+          "call like dev; lib ev: the same call by CUDA events like ev; lib "
+          "all: K4's library call over every row block, device time; "
+          "route: K4's route, by dtype, shape and alignment (all: the "
+          "decode w1 launch without n_rows, its library the call over "
+          "every row; fp32: its inputs cast to float32, its bound over 67 "
+          "TFLOP/s). The JSON holds the decode step's bf16 launches (the "
+          "most frequent shape on the path); K4's is the mean of w1, w3, "
+          "w2, its library_ms the call with offsets ending at n_rows.")
     return rows
 
 
@@ -764,10 +924,11 @@ def check_flash(torch, fa, ref, qkv, causal, err, bq=128, bkv=128,
 
 
 def flash_checks(torch, dev, err):
-    """K5 against flash_attention_ref: the reference's test shapes, causal
-    and not, in float32 (2e-5); its four tile sizes; bf16 (3e-2); ragged S
-    and hd; and the two timing shapes (causal; bf16 at
-    FLASH_LONG_BF16_TOL). Returns the timing cases (label, (q, k, v))."""
+    """K5 against flash_attention_ref through both routes (float32 on the
+    CUDA cores at 2e-5, bf16 on the tensor cores at 3e-2): the reference's
+    test shapes, causal and not; its four tile sizes; ragged S and hd; and
+    the two timing shapes (causal; bf16 at FLASH_LONG_BF16_TOL). Returns
+    the timing cases (label, (q, k, v))."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     g = torch.Generator(device=dev)
@@ -777,18 +938,19 @@ def flash_checks(torch, dev, err):
         return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
                      for _ in range(3))
 
-    for bh, s, hd, bq, bkv in ((2, 128, 64, 64, 64), (4, 256, 32, 128, 64),
-                               (1, 512, 128, 128, 128)):
-        x = qkv((bh, s, hd))
+    for dtype in (torch.float32, torch.bfloat16):
+        for bh, s, hd, bq, bkv in ((2, 128, 64, 64, 64),
+                                   (4, 256, 32, 128, 64),
+                                   (1, 512, 128, 128, 128)):
+            x = qkv((bh, s, hd), dtype)
+            for causal in (True, False):
+                check_flash(torch, fa, ref, x, causal, err, bq, bkv)
+        x = qkv((2, 256, 64), dtype)
+        for bq, bkv in ((64, 64), (128, 64), (64, 128), (256, 256)):
+            check_flash(torch, fa, ref, x, True, err, bq, bkv)
         for causal in (True, False):
-            check_flash(torch, fa, ref, x, causal, err, bq, bkv)
-    x = qkv((2, 256, 64))
-    for bq, bkv in ((64, 64), (128, 64), (64, 128), (256, 256)):
-        check_flash(torch, fa, ref, x, True, err, bq, bkv)
-    check_flash(torch, fa, ref, qkv((2, 128, 64), torch.bfloat16), True,
-                err)
-    for causal in (True, False):
-        check_flash(torch, fa, ref, qkv((3, 100, 40)), causal, err, 100, 100)
+            check_flash(torch, fa, ref, qkv((3, 100, 40), dtype), causal,
+                        err, 100, 100)
     cases = []
     for label, (bh, s, hd, dtype) in (
             ("kernel_bench width", (8, 2048, 64, torch.float32)),
@@ -799,13 +961,14 @@ def flash_checks(torch, dev, err):
                     else FLASH_LONG_BF16_TOL)
         cases.append((f"K5 {label}", x))
     torch.cuda.synchronize()
-    print(f"K5 ~ flash_attention_ref (rtol = atol = 2e-5 float32, 3e-2 "
-          f"bf16): (2, 128, 64), (4, 256, 32), (1, 512, 128) causal and "
-          f"not; tiles (64, 64), (128, 64), (64, 128), (256, 256); bf16 "
-          f"(2, 128, 64); ragged (3, 100, 40); timing shapes (8, 2048, 64) "
-          f"float32 and (16, 2048, 128) bf16 (rtol "
-          f"{FLASH_LONG_BF16_TOL[0]}, atol {FLASH_LONG_BF16_TOL[1]}); "
-          f"max |diff| "
+    print(f"K5 ~ flash_attention_ref (rtol = atol = 2e-5 float32 on the "
+          f"{fa.route(x[0].float())} route, 3e-2 bf16 on the "
+          f"{fa.route(x[0].bfloat16())} route): (2, 128, 64), (4, 256, 32), "
+          f"(1, 512, 128) causal and not; tiles (64, 64), (128, 64), "
+          f"(64, 128), (256, 256); ragged (3, 100, 40); each in both "
+          f"dtypes; timing shapes (8, 2048, 64) float32 and (16, 2048, 128) "
+          f"bf16 (rtol {FLASH_LONG_BF16_TOL[0]}, atol "
+          f"{FLASH_LONG_BF16_TOL[1]}); max |diff| "
           f"{err['flash_attention_kernel']:.3g}")
     return cases
 
@@ -1017,7 +1180,8 @@ def k5_k6_timing(torch, flash_cases, ssd_cases, card):
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ssd
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    cases = []         # (kernel, label, shape, fn, plain, lib, bound, reps)
+    # (kernel, label, shape, fn, plain, lib, bound, reps, route)
+    cases = []
     for label, (q, k, v) in flash_cases:
         bh, s, hd = q.shape
         item = q.element_size()
@@ -1031,7 +1195,8 @@ def k5_k6_timing(torch, flash_cases, ssd_cases, card):
             lambda q=q[None], k=k[None], v=v[None]:
                 sdpa(q, k, v, is_causal=True),
             bound_ms(4 * bh * s * hd * item,
-                     4 * bh * hd * s * (s + 1) // 2, peak), 10))
+                     4 * bh * hd * s * (s + 1) // 2, peak), 10,
+            fa.route(q)))
     for label, args, chunk in ssd_cases:
         xdt, _, b, _ = args
         bh, s, p = xdt.shape
@@ -1045,12 +1210,14 @@ def k5_k6_timing(torch, flash_cases, ssd_cases, card):
             "ssd_scan_kernel", label, f"({bh}, {s}, {p}, {n}) q {chunk}",
             lambda a=args, c=chunk: ssd.ssd_scan_kernel(*a, chunk=c),
             lambda a=args, c=chunk: ref.ssd_scan_ref(*a, c), None,
-            bound_ms(byts, ops, PEAK_FP32_OPS_PER_S), 5))
+            bound_ms(byts, ops, PEAK_FP32_OPS_PER_S), 5, "cuda_cores"))
     rows = {}
     print(f"K5 / K6 times, ms per launch [{card}]:")
     print(f"  {'case':26s} {'shape':34s} {'dev':>8s} {'ev':>8s} "
-          f"{'plain':>8s} {'bound':>8s} {'by':>5s} {'library':>8s}")
-    for kernel, label, shape, fn, plain_fn, lib_fn, (bnd, by), reps in cases:
+          f"{'plain':>8s} {'bound':>8s} {'by':>5s} {'library':>8s} "
+          f"{'lib ev':>8s}  route")
+    for kernel, label, shape, fn, plain_fn, lib_fn, (bnd, by), reps, \
+            way in cases:
         for warm in (fn, plain_fn, lib_fn):    # first calls pick and build
             if warm is not None:               # plans (SDPA's backends)
                 warm()
@@ -1060,10 +1227,15 @@ def k5_k6_timing(torch, flash_cases, ssd_cases, card):
             fail(f"torch.profiler recorded no device time for {label}")
         ev = event_ms(torch, fn, reps)
         plain = event_ms(torch, plain_fn, 3)
-        lib = event_ms(torch, lib_fn, reps) if lib_fn else None
+        lib = profiled_ms(torch, lib_fn, None, reps) if lib_fn else None
+        lib_ev = event_ms(torch, lib_fn, reps) if lib_fn else None
+        if lib_fn and lib is None:
+            fail(f"torch.profiler recorded no device time for the library "
+                 f"call of {label}")
         print(f"  {label:26s} {shape:34s} {dev_ms:8.4f} {ev:8.4f} "
               f"{plain:8.4f} {bnd:8.5f} {by[:5]:>5s} "
-              f"{'none' if lib is None else f'{lib:8.4f}':>8s}")
+              f"{'none' if lib is None else f'{lib:8.4f}':>8s} "
+              f"{'none' if lib_ev is None else f'{lib_ev:8.4f}':>8s}  {way}")
         if kernel not in rows:
             rows[kernel] = [(dev_ms, plain, bnd, by) +
                             (() if lib is None else (lib,))]
@@ -1077,8 +1249,10 @@ def k5_k6_timing(torch, flash_cases, ssd_cases, card):
           "67 TFLOP/s float32 or 989 TFLOP/s bf16; library: "
           "scaled_dot_product_attention(q, k, v, is_causal=True) on "
           "(1, BH, S, hd) views (a 4-D input lets it pick its fused "
-          "kernels), CUDA "
-          "events (K6 has no one-call counterpart). The JSON holds the "
+          "kernels), torch.profiler device time per call, lib ev: the same "
+          "by CUDA events (K6 has no one-call counterpart); route: K5's by "
+          "dtype "
+          "(K6 runs on the CUDA cores). The JSON holds the "
           "first case of each kernel, the kernel-bench width.")
     return rows
 

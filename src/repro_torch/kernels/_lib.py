@@ -4,14 +4,15 @@ Each kernel is one ``csrc/*.cu`` file with a plain C interface, built by
 ``nvcc`` for ``sm_90a`` at its first launch (``repro_torch._nvcc``) and
 loaded with ctypes. A wrapper counts a launch where it launches its
 kernel and nowhere else, so a run can show that its path went through
-the kernel.
+the kernel; a kernel with more than one route (K4, K5: tensor cores or
+CUDA cores, by dtype) also counts the route it launched.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -20,7 +21,8 @@ from repro_torch import _nvcc as nvcc_build
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = nvcc_build.BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+              "-ldl")
 
 #: kernel name -> its source in ``csrc/``.
 SOURCES = {"gather_rows_kernel": "coalesced_gather.cu",
@@ -30,6 +32,7 @@ SOURCES = {"gather_rows_kernel": "coalesced_gather.cu",
 KERNELS = tuple(SOURCES)
 
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _nvcc = nvcc_build.find_nvcc
@@ -40,13 +43,22 @@ def launch_count(kernel: str) -> int:
     return _LAUNCHES[kernel]
 
 
+def route_count(kernel: str, route: str) -> int:
+    """Launches of `kernel` by `route` (``"tensor_cores"`` or
+    ``"cuda_cores"``, as the wrapper names it) since the last reset."""
+    return _ROUTE_LAUNCHES.get((kernel, route), 0)
+
+
 def reset_launch_counts() -> None:
     for name in KERNELS:
         _LAUNCHES[name] = 0
+    _ROUTE_LAUNCHES.clear()
 
 
-def count_launch(kernel: str) -> None:
+def count_launch(kernel: str, route: Optional[str] = None) -> None:
     _LAUNCHES[kernel] += 1
+    if route is not None:
+        _ROUTE_LAUNCHES[(kernel, route)] = route_count(kernel, route) + 1
 
 
 def build(kernel: str) -> str:

@@ -2,13 +2,24 @@
 
 ``out = softmax(q kᵀ / sqrt(hd), causal mask) v`` over q, k, v of shape
 (BH, S, hd), batch and heads flattened. On a CUDA tensor
-:func:`flash_attention` launches ``flash_attention_kernel``
-(``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``: float32 inside,
-the result cast to ``q.dtype``) or raises; only a CPU tensor takes the
-plain version (``ref.flash_attention_ref``). The kernel's own tiling is
-fixed (64 query rows by 32 keys); ``bq`` and ``bkv`` are checked as the
-reference asserts them and do not change the result beyond float32
-rounding, as the reference's tile-invariance test requires.
+:func:`flash_attention` launches ``csrc/flash_attention.cu`` (CUDA C++
+for ``sm_90a``: float32 statistics and sums, the result cast to
+``q.dtype``) or raises; only a CPU tensor takes the plain version
+(``ref.flash_attention_ref``). The route is chosen by dtype and named by
+:func:`route`:
+
+* ``"tensor_cores"`` for bf16: ``mma.sync`` bf16 products in
+  FlashAttention-2's layout, P rounded to bf16 as the second product's
+  operand;
+* ``"cuda_cores"`` for float32: register-tiled float32 products, since
+  the reference's float32 tolerance (2e-5) rules out TF32.
+
+Both need hd a multiple of 8 and at most 128 and q, k, v on 16-byte
+boundaries (``cp.async`` copies 16 bytes at a time); anything else raises.
+The kernels' own tiling is fixed (64 query rows by 64 keys); ``bq`` and
+``bkv`` are checked as the reference asserts them and do not change the
+result beyond float32 rounding, as the reference's tile-invariance test
+requires.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 KERNEL = "flash_attention_kernel"
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE = {torch.float32: "cuda_cores", torch.bfloat16: "tensor_cores"}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -30,6 +42,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.argtypes = [ptr] * 4 + [i32] * 4 + [
         ctypes.c_float, i32, i32, ptr]
     lib.flash_attention_launch.restype = ctypes.c_int
+
+
+def route(q: torch.Tensor) -> str:
+    """The route a card launch on `q` takes, by its dtype."""
+    if q.dtype not in _ROUTE:
+        raise ValueError(f"q is {q.dtype}, expected one of "
+                         f"{[str(d) for d in _ROUTE]}")
+    return _ROUTE[q.dtype]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,6 +86,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _lib.check_tensor("q", q, tuple(_DTYPE_CODE), dev)
     _lib.check_tensor("k", k, (q.dtype,), dev)
     _lib.check_tensor("v", v, (q.dtype,), dev)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -76,5 +99,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             sq, sk, hd, 1.0 / hd ** 0.5, int(bool(causal)),
             _DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     _lib.check_launch(lib, KERNEL, code)
-    _lib.count_launch(KERNEL)
+    _lib.count_launch(KERNEL, route(q))
     return out

@@ -9,6 +9,8 @@ counterpart here. ``moe_gmm`` launches K4, ``flash_attention`` K5 and ``ssd_scan
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import coalesced_gather as _gather_k
@@ -18,9 +20,13 @@ from repro_torch.kernels import ssd_scan as _ssd_k
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
-            block: int = 128) -> torch.Tensor:
-    """Grouped matmul over BM-aligned expert groups."""
-    return _gmm_k.gmm(x, w, block_expert.to(torch.int32), bm=block)
+            block: int = 128, n_rows: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """Grouped matmul over BM-aligned expert groups; rows at or past
+    ``n_rows`` (a device int32 scalar, ``None`` for every row) are zero
+    and their row blocks are skipped."""
+    return _gmm_k.gmm(x, w, block_expert.to(torch.int32), bm=block,
+                      n_rows=n_rows)
 
 
 def row_maps(src: torch.Tensor, dest: torch.Tensor, t_pad: int):

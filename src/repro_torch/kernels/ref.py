@@ -9,13 +9,17 @@ clamped into range, as the reference's gathers clamp them.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
 def gmm_ref(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
-            bm: int) -> torch.Tensor:
+            bm: int, n_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[i] = x[i] @ w[block_expert[i // bm]], in float32, cast to
-    ``x.dtype``. x: (M, K); w: (E, K, N); block_expert: (M // bm,).
+    ``x.dtype``. x: (M, K); w: (E, K, N); block_expert: (M // bm,). Rows
+    at or past ``n_rows`` (a one-element tensor, clamped into [0, M]) are
+    zero; ``None`` keeps every row.
 
     One batched product over the row blocks, each with its expert's
     weights (gathered per block, not per row).
@@ -25,8 +29,12 @@ def gmm_ref(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
     nb = m // bm
     be = block_expert.long().clamp(0, e - 1)
     wg = w.index_select(0, be).float()                  # (M/bm, K, N)
-    out = torch.bmm(x.reshape(nb, bm, k).float(), wg)
-    return out.reshape(m, n).to(x.dtype)
+    out = torch.bmm(x.reshape(nb, bm, k).float(), wg).reshape(m, n)
+    if n_rows is not None:
+        rows = torch.arange(m, device=x.device)[:, None]
+        out = torch.where(rows < n_rows.reshape(()).to(x.device), out,
+                          torch.zeros((), device=x.device))
+    return out.to(x.dtype)
 
 
 def gather_rows_ref(x: torch.Tensor, row_src: torch.Tensor,

@@ -133,6 +133,13 @@ def dispatch_lw_plus(params: dict, x: torch.Tensor, cfg: ModelConfig
 # ---------------------------------------------------------------------------
 
 
+def _group_sizes(flat_e: torch.Tensor, n_experts: int, block: int):
+    """Assignments per expert (a bincount) and each group padded up to a
+    multiple of `block`."""
+    sizes = _one_hot(flat_e, n_experts).sum(0)
+    return sizes, (sizes + block - 1) // block * block
+
+
 def sort_by_expert(idx: torch.Tensor, n_experts: int, block: int):
     """Token-expert assignments -> BM-aligned compact layout.
 
@@ -152,10 +159,9 @@ def sort_by_expert(idx: torch.Tensor, n_experts: int, block: int):
     flat_e = idx.reshape(-1).long()
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]                                 # nondecreasing
-    sizes = _one_hot(flat_e, n_experts).sum(0)               # bincount
+    sizes, padded = _group_sizes(flat_e, n_experts, block)
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
     starts = torch.cat([zero, torch.cumsum(sizes, 0)[:-1]])
-    padded = (sizes + block - 1) // block * block
     ends = torch.cumsum(padded, 0)
     grp_start = torch.cat([zero, ends[:-1]])
     rank = torch.arange(tk, device=dev) - starts[sorted_e]
@@ -168,11 +174,23 @@ def sort_by_expert(idx: torch.Tensor, n_experts: int, block: int):
     return order, dest, block_expert.to(torch.int32), t_pad
 
 
+def group_rows(idx: torch.Tensor, n_experts: int, block: int
+               ) -> torch.Tensor:
+    """Rows of ``sort_by_expert``'s layout that belong to a group: the end
+    of the last padded group, ``sum_e ceil(size_e / block) * block``, as a
+    0-dim int32 tensor on ``idx``'s device. Every ``dest`` lies below it;
+    the row blocks at and past it hold no token. Computed on the device,
+    so nothing waits on the host."""
+    _, padded = _group_sizes(idx.reshape(-1).long(), n_experts, block)
+    return padded.sum().to(torch.int32)
+
+
 def dispatch_sw_plus(params: dict, x: torch.Tensor, cfg: ModelConfig,
                      block: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-compact dispatch. x: (T, D) -> (y (T, D), aux).
 
-    Launches K3 once and K4 three times (w1, w3, w2).
+    Launches K3 once and K4 three times (w1, w3, w2); K4 skips the row
+    blocks past :func:`group_rows`, which K3 leaves at zero.
     """
     t, d = x.shape
     e = cfg.moe_experts_eff
@@ -180,15 +198,18 @@ def dispatch_sw_plus(params: dict, x: torch.Tensor, cfg: ModelConfig,
     w, idx, aux = router_probs(params, x, cfg)
 
     order, dest, block_expert, t_pad = sort_by_expert(idx, e, block)
+    n_rows = group_rows(idx, e, block)
     token_src = order // k                                   # source rows
     # Dynamic coalescing: gather token rows into expert-contiguous layout.
     x_sorted = kernel_ops.coalesced_gather(x, token_src, dest, t_pad,
                                            block=block)
 
-    h1 = kernel_ops.moe_gmm(x_sorted, params["w1"], block_expert, block)
-    h3 = kernel_ops.moe_gmm(x_sorted, params["w3"], block_expert, block)
+    h1 = kernel_ops.moe_gmm(x_sorted, params["w1"], block_expert, block,
+                            n_rows)
+    h3 = kernel_ops.moe_gmm(x_sorted, params["w3"], block_expert, block,
+                            n_rows)
     h = F.silu(h1) * h3
-    out = kernel_ops.moe_gmm(h, params["w2"], block_expert, block)
+    out = kernel_ops.moe_gmm(h, params["w2"], block_expert, block, n_rows)
 
     flat_w = w.reshape(-1).to(x.dtype)
     y = torch.zeros((t, d), dtype=x.dtype, device=x.device)

@@ -227,6 +227,58 @@ def test_gmm_checks_shapes():
         moe_gmm.gmm(x, w[:, :16], be, bm=64)
 
 
+@pytest.mark.parametrize("n_rows", [0, 96, 256, 512])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_gmm_n_rows_matches_reference_with_rows_zeroed(n_rows, dtype):
+    """``n_rows`` keeps the reference's product below it and zeroes the
+    rows at and past it: none, mid-block (96 of bm 128), two blocks, all."""
+    m, k, n, e, bm = 512, 96, 80, 4, 128
+    x = _rand(0, (m, k))
+    w = _rand(1, (e, k, n)) * 0.1
+    be = np.random.default_rng(2).integers(0, e, size=m // bm).astype(
+        np.int32)
+    want = _np(rops.moe_gmm(_jnp(x, dtype), _jnp(w, dtype), jnp.asarray(be),
+                            block=bm)).copy()
+    want[n_rows:] = 0.0
+    got = ops.moe_gmm(_torch(x, dtype), _torch(w, dtype),
+                      torch.from_numpy(be), block=bm,
+                      n_rows=torch.tensor(n_rows, dtype=torch.int32))
+    assert got.dtype == _torch(x, dtype).dtype
+    assert bool((got[n_rows:] == 0).all())
+    tol = _TOL[dtype]
+    np.testing.assert_allclose(_np(got), want, rtol=tol, atol=tol * 8)
+
+
+def test_gmm_n_rows_none_keeps_every_row():
+    x = torch.ones((128, 8))
+    w = torch.ones((1, 8, 8))
+    be = torch.zeros(2, dtype=torch.int32)
+    full = moe_gmm.gmm(x, w, be, bm=64)
+    assert torch.equal(full, torch.full((128, 8), 8.0))
+    past_m = torch.tensor([200], dtype=torch.int32)
+    assert torch.equal(moe_gmm.gmm(x, w, be, bm=64, n_rows=past_m), full)
+    with pytest.raises(ValueError, match="one count"):
+        moe_gmm.gmm(x, w, be, bm=64, n_rows=torch.zeros(2, dtype=torch.int32))
+
+
+def test_gmm_route_by_dtype_shape_and_alignment():
+    """bf16 with K, N multiples of 8 on 16-byte boundaries takes the
+    tensor cores; float32, a ragged K or N, or an offset x the CUDA
+    cores."""
+    bf16 = torch.bfloat16
+    x = torch.zeros((128, 64), dtype=bf16)
+    w = torch.zeros((2, 64, 80), dtype=bf16)
+    assert moe_gmm.route(x, w) == "tensor_cores"
+    assert moe_gmm.route(x.float(), w.float()) == "cuda_cores"
+    assert moe_gmm.route(torch.zeros((128, 60), dtype=bf16),
+                         torch.zeros((2, 60, 80), dtype=bf16)) == "cuda_cores"
+    assert moe_gmm.route(x, torch.zeros((2, 64, 76), dtype=bf16)) == \
+        "cuda_cores"
+    offset = torch.zeros(128 * 64 + 4, dtype=bf16)[4:].view(128, 64)
+    assert offset.is_contiguous() and offset.data_ptr() % 16 == 8
+    assert moe_gmm.route(offset, w) == "cuda_cores"
+
+
 # ------------------------------------------------------ K5: flash attention
 
 
@@ -282,6 +334,14 @@ def test_flash_checks_shapes():
     with pytest.raises(ValueError, match="use cuda or cpu"):
         flash_attention.flash_attention(q.to("meta"), q.to("meta"),
                                         q.to("meta"))
+
+
+def test_flash_route_by_dtype():
+    assert flash_attention.route(torch.zeros(1, dtype=torch.bfloat16)) == \
+        "tensor_cores"
+    assert flash_attention.route(torch.zeros(1)) == "cuda_cores"
+    with pytest.raises(ValueError, match="float16"):
+        flash_attention.route(torch.zeros(1, dtype=torch.float16))
 
 
 # ------------------------------------------------------- K6: SSD scan
@@ -375,6 +435,22 @@ def test_launch_counts_reset_and_cover_both_kernels():
                  torch.ones((1, 8, 2)), torch.ones((1, 8, 2)), chunk=8)
     assert {k: _lib.launch_count(k) for k in _lib.KERNELS} == {
         k: 0 for k in _lib.KERNELS}
+
+
+def test_route_counts_reset_with_launch_counts():
+    _lib.reset_launch_counts()
+    _lib.count_launch("gmm_kernel", "tensor_cores")
+    _lib.count_launch("gmm_kernel", "tensor_cores")
+    _lib.count_launch("flash_attention_kernel", "cuda_cores")
+    _lib.count_launch("gather_rows_kernel")
+    assert _lib.launch_count("gmm_kernel") == 2
+    assert _lib.route_count("gmm_kernel", "tensor_cores") == 2
+    assert _lib.route_count("gmm_kernel", "cuda_cores") == 0
+    assert _lib.route_count("flash_attention_kernel", "cuda_cores") == 1
+    assert _lib.launch_count("gather_rows_kernel") == 1
+    _lib.reset_launch_counts()
+    assert _lib.launch_count("gmm_kernel") == 0
+    assert _lib.route_count("gmm_kernel", "tensor_cores") == 0
 
 
 @pytest.mark.parametrize("kernel", ["gather_rows_kernel", "gmm_kernel",
@@ -490,3 +566,112 @@ def test_ssd_kernel_within_tolerance_on_card(card, bh, s, p, n, q):
     assert _lib.launch_count("ssd_scan_kernel") == before + 1
     for want in (ref.ssd_scan_ref(*args, q), ref.ssd_seq_ref(*args)):
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+TC_GMM_SHAPES = [(256, 96, 80), (512, 136, 264), (1024, 2048, 1408)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", TC_GMM_SHAPES)
+@pytest.mark.parametrize("bm", [64, 128])
+def test_gmm_tensor_core_route_on_card(card, m, k, n, bm):
+    """bf16 through the tensor-core route at ragged K/N and the serve's
+    (2048, 1408): n_rows 0, mid-block and full equal gmm_ref(..., n_rows)
+    within the reference's bf16 tolerance, with the rows past n_rows
+    exactly zero; None keeps every row."""
+    e = 8
+    x = torch.from_numpy(_rand(0, (m, k))).to(card, torch.bfloat16)
+    w = (torch.from_numpy(_rand(1, (e, k, n))) * 0.1).to(card, torch.bfloat16)
+    be = torch.from_numpy(np.random.default_rng(2).integers(
+        0, e, size=m // bm).astype(np.int32)).to(card)
+    assert moe_gmm.route(x, w) == "tensor_cores"
+    for n_rows in (0, bm + bm // 2, m, None):
+        nr = (None if n_rows is None
+              else torch.tensor(n_rows, dtype=torch.int32, device=card))
+        before = _lib.route_count("gmm_kernel", "tensor_cores")
+        got = moe_gmm.gmm(x, w, be, bm=bm, n_rows=nr)
+        torch.cuda.synchronize()
+        assert _lib.route_count("gmm_kernel", "tensor_cores") == before + 1
+        want = ref.gmm_ref(x, w, be, bm, nr)
+        if n_rows is not None:
+            assert bool((got[n_rows:] == 0).all())
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=0.16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_n_rows_equals_none_on_zero_padded_x_on_card(card, dtype):
+    """Where x is zero past n_rows (as K3 leaves it on the serve path),
+    skipping those blocks changes no bit of the output, on either route."""
+    m, k, n, e, bm, n_rows = 1024, 256, 384, 8, 128, 384
+    x = torch.from_numpy(_rand(3, (m, k))).to(card, dtype)
+    x[n_rows:] = 0
+    w = (torch.from_numpy(_rand(4, (e, k, n))) * 0.1).to(card, dtype)
+    be = torch.from_numpy(np.random.default_rng(5).integers(
+        0, e, size=m // bm).astype(np.int32)).to(card)
+    nr = torch.tensor([n_rows], dtype=torch.int32, device=card)
+    skipped = moe_gmm.gmm(x, w, be, bm=bm, n_rows=nr)
+    full = moe_gmm.gmm(x, w, be, bm=bm)
+    torch.cuda.synchronize()
+    assert torch.equal(skipped, full)
+    assert bool((full[n_rows:] == 0).all())
+
+
+@pytest.mark.gpu
+def test_bf16_calls_launch_the_tensor_core_routes(card):
+    _lib.reset_launch_counts()
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.ones((128, 64), dtype=dtype, device=card)
+        w = torch.ones((2, 64, 64), dtype=dtype, device=card)
+        moe_gmm.gmm(x, w, torch.zeros(2, dtype=torch.int32, device=card),
+                    bm=64)
+        q = torch.ones((1, 64, 64), dtype=dtype, device=card)
+        flash_attention.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    for kernel in ("gmm_kernel", "flash_attention_kernel"):
+        assert _lib.route_count(kernel, "tensor_cores") == 1, kernel
+        assert _lib.route_count(kernel, "cuda_cores") == 1, kernel
+        assert _lib.launch_count(kernel) == 2, kernel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [40, 64, 128])
+@pytest.mark.parametrize("s", [100, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_routes_within_tolerance_on_card(card, hd, s, causal, dtype):
+    """Both routes at the reference's tolerances (2e-5 float32, 3e-2
+    bf16), at hd 40 (padded to 64 on the tensor cores), 64 and 128, at a
+    ragged S and at S 2048."""
+    q, k, v = (torch.from_numpy(a).to(card, dtype)
+               for a in _qkv(11, (2, s, hd)))
+    way = flash_attention.route(q)
+    assert way == ("tensor_cores" if dtype == torch.bfloat16
+                   else "cuda_cores")
+    before = _lib.route_count("flash_attention_kernel", way)
+    got = flash_attention.flash_attention(q, k, v, causal=causal, bq=s,
+                                          bkv=s)
+    torch.cuda.synchronize()
+    assert _lib.route_count("flash_attention_kernel", way) == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_tile_invariance_on_card(card, dtype):
+    """The reference's four tile sizes give one result on the card, within
+    the reference's tolerance of the plain version."""
+    q, k, v = (torch.from_numpy(a).to(card, dtype)
+               for a in _qkv(9, (2, 256, 64)))
+    want = ref.flash_attention_ref(q, k, v, True)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    outs = [flash_attention.flash_attention(q, k, v, True, bq, bkv)
+            for bq, bkv in [(64, 64), (128, 64), (64, 128), (256, 256)]]
+    torch.cuda.synchronize()
+    for out in outs:
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(out, outs[0])

@@ -282,6 +282,27 @@ def test_sort_by_expert_matches_reference(t, k, e, block, seed):
     assert tb.dtype == torch.int32
 
 
+@pytest.mark.parametrize("t,k,e,block,seed", [
+    (4, 2, 4, 4, 0), (12, 4, 64, 128, 1), (31, 4, 64, 128, 2),
+    (96, 2, 8, 64, 3), (5, 3, 6, 8, 4), (4, 4, 64, 128, 5)])
+def test_group_rows_matches_reference_sort(t, k, e, block, seed):
+    """group_rows is the end of the reference's last padded group: the
+    first multiple of `block` past every ``dest`` of its sort_by_expert,
+    and the sum of its padded group sizes. Every dest lies below it, and
+    each block below it belongs to a group of the reference's map."""
+    idx = np.random.default_rng(seed).integers(0, min(e, 6), size=(t, k))
+    _, rd, rb, rt = rmoe.sort_by_expert(jnp.asarray(idx), e, block)
+    rd, rb = np.asarray(rd), np.asarray(rb)
+    ends = -(-(int(rd.max()) + 1) // block) * block
+    sizes = np.bincount(idx.reshape(-1), minlength=e)
+    assert ends == int((-(-sizes // block) * block).sum())
+    got = tmoe.group_rows(torch.from_numpy(idx), e, block)
+    assert got.dtype == torch.int32 and got.dim() == 0
+    assert int(got) == ends <= rt
+    assert bool((torch.from_numpy(rd.astype(np.int64)) < got).all())
+    assert set(rb[:ends // block].tolist()) == set(idx.reshape(-1).tolist())
+
+
 @pytest.mark.parametrize("dispatch", ["sw_plus64", "sw_plus128", "lw_plus",
                                       "oracle"])
 def test_dispatch_matches_reference(moe_setup, dispatch):
