@@ -7,16 +7,21 @@
 2. Builds every kernel from the ``csrc`` sources in the checkout, one
    ``nvcc`` per source, all started together: the family kernels (K1,
    K2) and the LM kernels (K3 ``gather_rows_kernel``, K4 ``gmm_kernel``,
-   K5 ``flash_attention_kernel``, K6 ``ssd_scan_kernel``), whose
-   ``ptxas -v`` report (registers, shared memory, spills) it prints.
+   K5 ``flash_attention_kernel``, K6 ``ssd_scan_kernel``), and prints
+   each one's ``ptxas -v`` report (registers, shared memory, spills).
 3. Holds K1 (``ws_prep_kernel``) against ``prep_ref`` on the same card
    tensors, and K2 (``ws_family_kernel``) against ``simulate_family_ref``
    run on the host CPU, on every one of the warp-size study's 45 trace
    families (the paper grid, seeds 0-2, default sizes): exact equality
    per unit.
 4. Holds K2 against ``simulate_family_ref`` once more on the 15 benchmarks
-   x the paper suite at 256 threads, plus three odd geometries (3/5 SMs,
-   3/5/7 controllers, 3/5/6-way L1s): exact equality per unit.
+   at 256 threads x the paper suite, three odd geometries (3/5 SMs,
+   3/5/7 controllers, 3/5/6-way L1s), the paper's unscaled 16-SM machine
+   (whose SW+ unit's state only K2's ``global`` placement holds) and L1s
+   of 33-72 ways: exact equality per unit; then the paper suite's
+   families once more in each of K2's placements of the state
+   (``shared``, ``global``), named. Fails unless each placement launched
+   in these checks and the main path.
 5. Drives the study's path, ``Session(device="cuda").run(Study(seeds=(0,
    1, 2), engine="cuda"))`` (270 cells), with every launch count set to 0
    just before and read just after, and holds every record bit for bit
@@ -28,7 +33,9 @@
 7. Times each family kernel per seed-0 family (warm-up first) by
    torch.profiler's device time, which is the JSON ``ms``, and prints
    CUDA events over back-to-back wrapper calls (launch overhead included)
-   as a column of its own, beside the plain version and the bound.
+   as a column of its own, beside the plain version and the bound; for
+   K2 also its placement, the longest unit's op count (its steps) and the
+   device time per step.
 8. Holds K3 (exactly) and K4 (rtol 2e-5 / 2e-2, atol 8 x rtol, float32 /
    bfloat16: the reference's own tolerances) against their plain versions
    at the serve path's shapes (bf16; decode T = 4, t_pad = 8192; prefill
@@ -66,8 +73,8 @@
    3e-2; its four tile sizes; ragged S and hd; the two timing shapes) and
    K6 against
    ``ssd_scan_ref`` and ``ssd_seq_ref`` (rtol 2e-4, atol 2e-5: the
-   reference's test shapes, chunks 16-128, P 50 / N 16, the kernel-bench
-   shape).
+   reference's test shapes, chunks 16-128, P 50 / N 16, four shapes at
+   K6's tile edges, the kernel-bench shape).
 13. Serves the ``mamba2-780m`` and ``hymba-1.5b`` smoke configs in
    float32 on numpy-seeded weights against the reference's golden files
    (``serve_golden_mamba2_smoke.json``, ``serve_golden_hymba_smoke.json``):
@@ -84,7 +91,9 @@
    counts set to 0 just before and read just after: K5, K4 and K6 must
    each launch. Prints its rows.
 16. Times K5 and K6 as in 11, beside their plain versions, bounds and, for
-   K5, ``scaled_dot_product_attention``, with K5's route.
+   K5, ``scaled_dot_product_attention``, with K5's route; K6 (three
+   launches a call) at the kernel-bench shape and at ``mamba2-780m``'s
+   width, with each launch's share.
 
 Prints one JSON object of kernel records on the line before the last and
 ``{"ok": true, "device": ...}`` as the last line. Exits non-zero, printing
@@ -157,6 +166,14 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 FLASH_LONG_BF16_TOL = (8e-3, 4e-3)
 SSD_TOL = (2e-4, 2e-5)
 SSD_PROMPT = 4096          # tokens of the full-width K6 check
+# K6 is three launches a call, each named ssd_scan_<stage>: its device time
+# per call sums them.
+SSD_PROFILE = ("ssd_scan_", 3)
+# (BH, S, P, N, q) at K6's tile edges: q and P not multiples of its 64-wide
+# tiles, P and N past 64 (two column groups a thread), N and P not
+# multiples of 4 (element-wise loads).
+SSD_EDGE_SHAPES = ((2, 320, 50, 16, 160), (2, 96, 100, 72, 48),
+                   (1, 200, 66, 36, 100), (1, 130, 64, 30, 65))
 
 
 T_START = time.perf_counter()
@@ -254,11 +271,13 @@ def filler_keys(torch):
     return set(_FILLER_KEYS)
 
 
-def profiled_ms(torch, fn, kernel, reps, attempts=5):
+def profiled_ms(torch, fn, kernel, reps, attempts=5, per_call=1):
     """Mean device time of `kernel` per launch over `reps` calls of `fn`,
-    from torch.profiler, averaged over the device records the trace holds;
-    with `kernel` None, the device time of every record but the filler's,
-    per call (a library call that launches more than one kernel).
+    from torch.profiler, averaged over the device records the trace holds
+    (`kernel` matches every record whose name holds it; a call that
+    launches `per_call` of them counts as one); with `kernel` None, the
+    device time of every record but the filler's, per call (a library
+    call that launches more than one kernel).
     A trace keeps only part of its kernels' device records, the same part
     each time (on an H100: 28 of 40 K3 launches; none of five K4 launches
     of 2.2 ms each), so
@@ -286,13 +305,32 @@ def profiled_ms(torch, fn, kernel, reps, attempts=5):
                 if _on_device(evt) and evt.key not in skip:
                     total += getattr(evt, "self_device_time_total", 0.0)
                     count = reps
-            elif kernel in evt.key:
+            elif kernel in evt.key and _on_device(evt):
                 total += getattr(evt, "device_time_total",
                                  getattr(evt, "cuda_time_total", 0.0))
                 count += evt.count
         if count > 0 and total > 0.0:
-            return total / count / 1e3
+            return total / (count / per_call) / 1e3
     return None
+
+
+def profiled_split(torch, fn, kernel, reps):
+    """Device time per call of `fn` by the name of each kernel whose name
+    holds `kernel`, from one torch.profiler trace of `reps` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    pad = torch.zeros(1, device="cuda")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _filler(torch, pad)
+            for _ in range(reps):
+                fn()
+            _filler(torch, pad)
+            torch.cuda.synchronize()
+    return {evt.key: evt.self_device_time_total / 1e3 / reps
+            for evt in prof.key_averages()
+            if kernel in evt.key and _on_device(evt)}
 
 
 def profiled_run(torch, fn):
@@ -318,10 +356,11 @@ def profiled_run(torch, fn):
     return wall, out
 
 
-def check_families(warpsim, fams, err):
+def check_families(warpsim, fams, err, where=None):
     """Hold K1 against prep_ref (on the card) and K2 against
     simulate_family_ref (on the host CPU) on each ``(units, family)`` of
-    `fams`, exactly; folds the largest difference into `err`. Returns the
+    `fams`, exactly, K2 in the placement `where` (None: as the wrapper
+    picks it); folds the largest difference into `err`. Returns the
     host-clock ms of simulate_family_ref per family."""
     import torch
     _cuda = warpsim._cuda
@@ -334,7 +373,7 @@ def check_families(warpsim, fams, err):
             err["ws_prep_kernel"] = max(err["ws_prep_kernel"], d)
             if not torch.equal(g, w):
                 fail(f"K1 differs from prep_ref on {key} (max {d})")
-        cycles, counts = _cuda.simulate_family(fam, *got)
+        cycles, counts = _cuda.simulate_family(fam, *got, where=where)
         cpu = _cuda.marshal(units, "cpu")
         cpu_prep = _cuda.prep_ref(cpu.up, cpu.fp, cpu.blocks, cpu.nbytes)
         t0 = time.perf_counter()
@@ -345,7 +384,8 @@ def check_families(warpsim, fams, err):
                 (counts - w_cnt).abs().max().item())
         err["ws_family_kernel"] = max(err["ws_family_kernel"], d)
         if not (torch.equal(cycles, w_cyc) and torch.equal(counts, w_cnt)):
-            fail(f"K2 differs from simulate_family_ref on {key} "
+            fail(f"K2 ({where or _cuda.placement(fam)}) differs from "
+                 f"simulate_family_ref on {key} "
                  f"{[c.name for _, c in units]}: {cycles.tolist()} "
                  f"{counts.tolist()} vs {w_cyc.tolist()} {w_cnt.tolist()}")
     return plain_ms
@@ -1003,7 +1043,8 @@ def ssd_checks(torch, dev, err):
                 rn(bh, s, n) * 0.3, rn(bh, s, n) * 0.3)
 
     for bh, s, p, n, q in ((2, 64, 16, 8, 16), (3, 128, 32, 16, 32),
-                           (1, 256, 64, 32, 64), (2, 64, 50, 16, 16)):
+                           (1, 256, 64, 32, 64), (2, 64, 50, 16, 16),
+                           *SSD_EDGE_SHAPES):
         check_ssd(torch, ssd, ref, inputs(bh, s, p, n), q, err)
     args = inputs(2, 128, 16, 8)
     first = check_ssd(torch, ssd, ref, args, 16, err)
@@ -1017,7 +1058,8 @@ def ssd_checks(torch, dev, err):
     torch.cuda.synchronize()
     print(f"K6 ~ ssd_scan_ref and ssd_seq_ref (rtol {SSD_TOL[0]}, atol "
           f"{SSD_TOL[1]}): (2, 64, 16, 8) q 16, (3, 128, 32, 16) q 32, "
-          f"(1, 256, 64, 32) q 64, P 50 / N 16, chunks 16/32/64/128 "
+          f"(1, 256, 64, 32) q 64, P 50 / N 16, the tile edges "
+          f"{list(SSD_EDGE_SHAPES)} (BH, S, P, N, q), chunks 16/32/64/128 "
           f"agreeing, kernel-bench shape (16, 4096, 64, 64) q 128; max "
           f"|diff| {err['ssd_scan_kernel']:.3g}")
     return [("K6 kernel_bench width", bench, 128)]
@@ -1222,7 +1264,9 @@ def k5_k6_timing(torch, flash_cases, ssd_cases, card):
             if warm is not None:               # plans (SDPA's backends)
                 warm()
         torch.cuda.synchronize()
-        dev_ms = profiled_ms(torch, fn, kernel, reps)
+        key, per_call = (SSD_PROFILE if kernel == "ssd_scan_kernel"
+                         else (kernel, 1))
+        dev_ms = profiled_ms(torch, fn, key, reps, per_call=per_call)
         if dev_ms is None:
             fail(f"torch.profiler recorded no device time for {label}")
         ev = event_ms(torch, fn, reps)
@@ -1236,6 +1280,10 @@ def k5_k6_timing(torch, flash_cases, ssd_cases, card):
               f"{plain:8.4f} {bnd:8.5f} {by[:5]:>5s} "
               f"{'none' if lib is None else f'{lib:8.4f}':>8s} "
               f"{'none' if lib_ev is None else f'{lib_ev:8.4f}':>8s}  {way}")
+        if per_call > 1:
+            for name, ms in sorted(profiled_split(torch, fn, key,
+                                                  reps).items()):
+                print(f"    {name.split('(')[0][:58]:58s} {ms:8.4f} ms")
         if kernel not in rows:
             rows[kernel] = [(dev_ms, plain, bnd, by) +
                             (() if lib is None else (lib,))]
@@ -1252,7 +1300,9 @@ def k5_k6_timing(torch, flash_cases, ssd_cases, card):
           "kernels), torch.profiler device time per call, lib ev: the same "
           "by CUDA events (K6 has no one-call counterpart); route: K5's by "
           "dtype "
-          "(K6 runs on the CUDA cores). The JSON holds the "
+          "(K6 runs on the CUDA cores); below each K6 case, its three "
+          "launches (the chunks' states, the pass over chunks, the "
+          "outputs) by device time per call. The JSON holds the "
           "first case of each kernel, the kernel-bench width.")
     return rows
 
@@ -1295,7 +1345,7 @@ def main() -> None:
           f"sources in parallel")
     for name, (path, secs) in built.items():
         print(f"  {name}: {secs:.3f} s -> {os.path.relpath(path, ROOT)}")
-    for name in lm_lib.KERNELS:
+    for name in builds:
         for line in _nvcc.build_log(built[name][0]).splitlines():
             if "ptxas info" in line or "spill" in line:
                 print(f"  ptxas {line.split('ptxas info')[-1].strip(' :')}")
@@ -1318,24 +1368,38 @@ def main() -> None:
           f"({sum(f.n_units for _, f in fams.values())} units, "
           f"{sum(f.blocks.numel() for _, f in fams.values())} blocks)")
 
-    # ---- K2 at 256 threads and on odd geometries -------------------------
-    stamp("K2 at 256 threads and odd geometries")
+    # ---- K2 at 256 threads and on other geometries -----------------------
+    stamp("K2 at 256 threads, odd, 16-SM and wide-way geometries")
     odd = [machines.baseline(16, num_sms=3, num_mem_ctrls=5, l1_ways=3,
                              l1_size_bytes=64 * 3 * 7),
            machines.sw_plus(num_sms=5, num_mem_ctrls=3, l1_ways=5,
                             l1_size_bytes=64 * 5 * 11),
            machines.lw_plus(num_sms=3, num_mem_ctrls=7, l1_ways=6,
                             l1_size_bytes=64 * 6 * 13)]
+    sixteen = [machines.baseline(32, num_sms=16), machines.sw_plus(num_sms=16)]
+    wide = [machines.baseline(8, l1_ways=40, l1_size_bytes=64 * 40 * 3),
+            machines.sw_plus(l1_ways=72, l1_size_bytes=64 * 72 * 2),
+            machines.lw_plus(l1_ways=33, l1_size_bytes=64 * 33 * 5)]
     small = {}
-    for i, cfgs in enumerate((suite, odd)):
+    for i, cfgs in enumerate((suite, odd, sixteen, wide)):
         for bench in BENCHMARKS:
             units = family_units(warpsim, bench, 256, 0, cfgs)
             small[(bench, 256, i)] = (units, _cuda.marshal(units, dev))
     check_families(warpsim, small, err)
     print(f"K1, K2 == plain versions on "
           f"{sum(f.n_units for _, f in small.values())} more units: "
-          f"15 benches x (paper suite, 3 odd geometries), 256 threads")
-    del small
+          f"15 benches at 256 threads x (paper suite, 3 odd geometries, "
+          f"16 SMs (ws32, SW+), L1s of 40/72/33 ways)")
+    # Each placement the paper suite's families fit, named, so that every
+    # placement is held against the plain version whatever the sizes pick.
+    suite_fams = {k: v for k, v in small.items() if k[2] == 0}
+    for where in _cuda.PLACEMENTS:
+        check_families(warpsim, suite_fams, err, where)
+    print(f"K2 == plain version in each placement {_cuda.PLACEMENTS} on the "
+          f"15 benches at 256 threads x the paper suite")
+    del small, suite_fams
+    placed = {r: _cuda.route_count("ws_family_kernel", r)
+              for r in _cuda.PLACEMENTS}
 
     # ---- the main path ---------------------------------------------------
     stamp("the study's main path")
@@ -1369,8 +1433,14 @@ def main() -> None:
         fail(f"family_launches {res.stats['family_launches']} != 45")
     if min(launches.values()) <= 0:
         fail(f"a kernel of the main path never launched: {launches}")
+    path_placed = {r: _cuda.route_count("ws_family_kernel", r)
+                   for r in _cuda.PLACEMENTS}
+    if min(placed[r] + path_placed[r] for r in _cuda.PLACEMENTS) <= 0:
+        fail(f"a placement of K2's state never launched: checks {placed}, "
+             f"main path {path_placed}")
     print(f"main path: 270 records == reference grid (bit for bit); "
-          f"stats {res.stats}; launches {launches}")
+          f"stats {res.stats}; launches {launches}; K2 placements "
+          f"{path_placed} (checks before it: {placed})")
     print(f"main path wall: {wall:.3f} s for 270 cells "
           f"(host stages + 45 family launches) [{card}]")
 
@@ -1397,9 +1467,10 @@ def main() -> None:
     print(f"  {'bench':5s} {'units':>5s} {'warps':>6s} {'ops':>7s} "
           f"{'blocks':>7s} | {'K1 dev':>8s} {'K1 ev':>8s} {'plain':>8s} "
           f"{'bound':>8s} | {'K2 dev':>8s} {'K2 ev':>8s} {'plain':>8s} "
-          f"{'bound':>8s}")
+          f"{'bound':>8s} {'place':>6s} {'steps':>6s} {'ns/step':>8s}")
     for bench in BENCHMARKS:
-        _units, fam = fams[(bench, 0)]
+        units, fam = fams[(bench, 0)]
+        steps = max(len(st.issue) for st, _cfg in units)
         ctrl, si, ssvc = _cuda.prep(fam)          # warm-up
         _cuda.simulate_family(fam, ctrl, si, ssvc)
         torch.cuda.synchronize()
@@ -1429,14 +1500,18 @@ def main() -> None:
               f"{fam.issue.numel():7d} {fam.blocks.numel():7d} | "
               f"{k1_dev or math.nan:8.4f} {k1_ev:8.4f} {k1_plain_ms:8.4f} "
               f"{b1:8.6f} | {k2_dev or math.nan:8.3f} {k2_ev:8.3f} "
-              f"{plain_ms[(bench, 0)]:8.1f} {b2:8.6f}")
+              f"{plain_ms[(bench, 0)]:8.1f} {b2:8.6f} "
+              f"{_cuda.placement(fam):>6s} {steps:6d} "
+              f"{1e6 * (k2_dev or math.nan) / steps:8.1f}")
     print("  dev: device time per launch from torch.profiler (nan: no "
           "device record in 5 traces; that family is left out of the JSON "
           "means); ev: CUDA events over back-to-back wrapper calls (20 for "
           "K1, 3 for K2), launch overhead included, not used in the JSON; "
           "K1 plain: prep_ref on the card, CUDA events; K2 plain: "
           "simulate_family_ref on the host CPU, host clock; bound: bytes "
-          "read once and written once over 3.35 TB/s")
+          "read once and written once over 3.35 TB/s; place: K2's "
+          "placement of the state; steps: ops of the family's longest unit "
+          "(one scheduling step each); ns/step: K2 dev over steps")
     for name, r in rows.items():
         if not r:
             fail(f"torch.profiler recorded no device time for {name}")

@@ -8,8 +8,12 @@ tensors (:func:`marshal`), then
 
 * ``ws_prep_kernel`` (K1) maps every block of every unit to its memory
   controller, L1 set and store occupancy, and
-* ``ws_family_kernel`` (K2) runs the scheduling recurrence, one CUDA thread
-  per unit, and returns ``(raw_cycles, offchip, merged, l1_hits)`` per unit.
+* ``ws_family_kernel`` (K2) runs the scheduling recurrence, one warp per
+  unit, and returns ``(raw_cycles, offchip, merged, l1_hits)`` per unit.
+  It has two placements of the units' state, picked per launch by
+  :func:`placement`: ``"shared"`` (each unit's state in its block's shared
+  memory) when the largest unit's state fits :data:`SMEM_LIMIT`, else
+  ``"global"`` (every unit's state in global scratch).
 
 Both live in ``csrc/warpsim_family.cu`` over the ``__host__ __device__``
 code of ``csrc/warpsim_family.cuh``. They are built with ``nvcc`` at first
@@ -36,22 +40,30 @@ from repro_torch.core.warpsim.config import MachineConfig
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = nvcc_build.BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
 _SOURCES = ("warpsim_family.cu", "warpsim_family.cuh")
 
 # Column names of the per-unit parameter tables, in the order of the
 # WS_* enums in csrc/warpsim_family.cuh.
 UP_COLS = ("warp_off", "op_off", "blk_off", "n_warps", "n_blocks", "n_sms",
-           "nctrl", "n_sets", "ways", "ideal", "n_slots", "fscr_off",
-           "iscr_off")
+           "nctrl", "n_sets", "ways", "ideal", "n_slots", "small_off",
+           "big_off")
 FP_COLS = ("hit_lat", "depth", "dram_lat", "svc_unit")
 _UP = {name: i for i, name in enumerate(UP_COLS)}
 _FP = {name: i for i, name in enumerate(FP_COLS)}
 
 KERNELS = ("ws_prep_kernel", "ws_family_kernel")
+#: Where K2 keeps the units' state: the routes of ``ws_family_kernel``.
+PLACEMENTS = ("shared", "global")
+#: Dynamic shared memory one block of K2 may use on an H100: the 227 KB a
+#: block may have, less K2's static stage of 32 blocks' columns (1 KB).
+SMEM_LIMIT = 232448 - 1024
 
-# Launches per kernel, counted by the wrappers where they launch.
+# Launches per kernel, counted by the wrappers where they launch, and K2's
+# launches per placement.
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_PATH: Optional[str] = None
 
@@ -61,9 +73,16 @@ def launch_count(kernel: str) -> int:
     return _LAUNCHES[kernel]
 
 
+def route_count(kernel: str, route: str) -> int:
+    """Launches of `kernel` by `route` (K2's placements,
+    :data:`PLACEMENTS`) since the last reset."""
+    return _ROUTE_LAUNCHES.get((kernel, route), 0)
+
+
 def reset_launch_counts() -> None:
     for name in KERNELS:
         _LAUNCHES[name] = 0
+    _ROUTE_LAUNCHES.clear()
 
 
 def status() -> dict:
@@ -118,7 +137,7 @@ def _lib() -> ctypes.CDLL:
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.ws_prep_launch.argtypes = [ptr] * 7 + [i64, i64, ptr]
         lib.ws_prep_launch.restype = ctypes.c_int
-        lib.ws_family_launch.argtypes = [ptr] * 16 + [i64, ptr]
+        lib.ws_family_launch.argtypes = [ptr] * 15 + [i64, i64, ptr]
         lib.ws_family_launch.restype = ctypes.c_int
         lib.ws_error_string.argtypes = [ctypes.c_int]
         lib.ws_error_string.restype = ctypes.c_char_p
@@ -217,8 +236,8 @@ class Family:
     blocks: torch.Tensor    # int64[sum blocks]
     nbytes: torch.Tensor    # int64[sum blocks]
     slot: torch.Tensor      # int64[sum blocks]  dense id of the block
-    fscr_len: int           # doubles of scratch the recurrence needs
-    iscr_len: int           # int64s of scratch the recurrence needs
+    scratch_len: int        # 8-byte words of global scratch for every unit's state
+    state_bytes: int        # bytes of the largest unit's state
     max_blocks: int         # most blocks of any unit
 
     @property
@@ -254,7 +273,7 @@ def marshal(units: Sequence[Tuple[StreamCols, MachineConfig]],
     cols: Dict[str, List[np.ndarray]] = {
         k: [] for k in ("next0", "end", "issue", "kind", "blk_off",
                         "blk_len", "blocks", "nbytes", "slot")}
-    warp_off = op_off = blk_off = fscr = iscr = 0
+    warp_off = op_off = blk_off = scratch = state = 0
     for u, (st, cfg) in enumerate(units):
         m = machine_scalars(cfg)
         nw = st.n_warps
@@ -266,9 +285,21 @@ def marshal(units: Sequence[Tuple[StreamCols, MachineConfig]],
             slot = slot_cache[id(st.blocks)] = inv.astype(np.int64)
         n_slots = max(1, int(slot.max(initial=0)) + 1)
         lines = m["n_sms"] * m["n_sets"] * m["ways"]
+        # K2 indexes within a unit in int32 and keeps tags (slot ids) and
+        # LRU ticks (up to two a block) in int32.
+        if max(nw, n_ops, 2 * n_blk, m["n_sms"] * n_slots, lines) >= 2 ** 31:
+            raise ValueError(f"unit {u} is too large for one family launch: "
+                             f"{nw} warps, {n_ops} ops, {n_blk} blocks, "
+                             f"{n_slots} slots, {lines} L1 lines")
+        # State sizes, in 8-byte words, in the layout ws_simulate_unit
+        # carves them: the small part (warps, SMs, controllers) padded to
+        # an even count, then the big one (L1 lines, SW+ table).
+        small = 5 * nw + m["n_sms"] + m["nctrl"] + (m["n_sms"] + 1) // 2
+        small += small % 2
+        big = 2 * lines + (m["n_sms"] * n_slots if m["ideal"] else 0)
         row = dict(warp_off=warp_off, op_off=op_off, blk_off=blk_off,
                    n_warps=nw, n_blocks=n_blk, n_slots=n_slots,
-                   fscr_off=fscr, iscr_off=iscr,
+                   small_off=scratch, big_off=scratch + small,
                    **{k: m[k] for k in ("n_sms", "nctrl", "n_sets", "ways",
                                         "ideal")})
         up[u] = [row[k] for k in UP_COLS]
@@ -285,10 +316,8 @@ def marshal(units: Sequence[Tuple[StreamCols, MachineConfig]],
         warp_off += nw
         op_off += n_ops
         blk_off += n_blk
-        # Scratch sizes, in the layout ws_simulate_unit carves them.
-        fscr += (nw + m["n_sms"] + m["nctrl"] + lines
-                 + (m["n_sms"] * n_slots if m["ideal"] else 0))
-        iscr += nw + m["n_sms"] + 2 * lines
+        scratch += small + big + big % 2  # keeps every part 16-byte aligned
+        state = max(state, 8 * (small + big))
 
     def t(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -296,7 +325,7 @@ def marshal(units: Sequence[Tuple[StreamCols, MachineConfig]],
     return Family(
         up=t(up), fp=t(fp),
         **{k: t(np.concatenate(v)) for k, v in cols.items()},
-        fscr_len=fscr, iscr_len=iscr,
+        scratch_len=scratch, state_bytes=state,
         max_blocks=int(up[:, _UP["n_blocks"]].max()))
 
 
@@ -347,12 +376,22 @@ def prep_ref(up: torch.Tensor, fp: torch.Tensor, blocks: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def placement(fam: Family) -> str:
+    """Where K2 keeps `fam`'s state: ``"shared"`` when the largest unit's
+    state fits one block's shared memory (:data:`SMEM_LIMIT`), else
+    ``"global"``. Both placements are one kernel and give the same bits;
+    the shared one is faster."""
+    return "shared" if fam.state_bytes <= SMEM_LIMIT else "global"
+
+
 def simulate_family(fam: Family, ctrl: torch.Tensor, si: torch.Tensor,
-                    ssvc: torch.Tensor
+                    ssvc: torch.Tensor, where: Optional[str] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(raw_cycles float64[U], counts int64[U, 3])`` with counts
-    ``(offchip, merged, l1_hits)``. Launches K2 on a CUDA family; runs
-    :func:`simulate_family_ref` on a CPU one."""
+    ``(offchip, merged, l1_hits)``. Launches K2 on a CUDA family, in the
+    placement :func:`placement` picks (`where`, when given, names another
+    that the state fits, as the tests do to hold each against the plain
+    version); runs :func:`simulate_family_ref` on a CPU one."""
     if fam.device.type == "cpu":
         return simulate_family_ref(fam, ctrl, si, ssvc)
     _check_family(fam)
@@ -362,8 +401,16 @@ def simulate_family(fam: Family, ctrl: torch.Tensor, si: torch.Tensor,
                            ("ssvc", ssvc, torch.float64)):
         _check_tensor(name, x, dtype, fam.device, (n,))
     dev = fam.device
-    fscr = torch.empty(max(fam.fscr_len, 1), dtype=torch.float64, device=dev)
-    iscr = torch.empty(max(fam.iscr_len, 1), dtype=torch.int64, device=dev)
+    if where is None:
+        where = placement(fam)
+    if where not in PLACEMENTS:
+        raise ValueError(f"unknown placement {where!r}; use {PLACEMENTS}")
+    smem = fam.state_bytes if where == "shared" else 0
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"placement {where!r} needs {smem} bytes of shared "
+                         f"memory a block; at most {SMEM_LIMIT}")
+    scratch = torch.empty(1 if where == "shared" else max(fam.scratch_len, 1),
+                          dtype=torch.int64, device=dev)
     cycles = torch.empty(fam.n_units, dtype=torch.float64, device=dev)
     counts = torch.empty((fam.n_units, 3), dtype=torch.int64, device=dev)
     lib = _lib()
@@ -373,11 +420,13 @@ def simulate_family(fam: Family, ctrl: torch.Tensor, si: torch.Tensor,
             fam.end.data_ptr(), fam.issue.data_ptr(), fam.kind.data_ptr(),
             fam.blk_off.data_ptr(), fam.blk_len.data_ptr(),
             fam.slot.data_ptr(), ctrl.data_ptr(), si.data_ptr(),
-            ssvc.data_ptr(), fscr.data_ptr(), iscr.data_ptr(),
-            cycles.data_ptr(), counts.data_ptr(), fam.n_units,
+            ssvc.data_ptr(), scratch.data_ptr(), cycles.data_ptr(),
+            counts.data_ptr(), fam.n_units, smem,
             torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(lib, "ws_family_kernel", code)
     _LAUNCHES["ws_family_kernel"] += 1
+    key = ("ws_family_kernel", where)
+    _ROUTE_LAUNCHES[key] = _ROUTE_LAUNCHES.get(key, 0) + 1
     return cycles, counts
 
 

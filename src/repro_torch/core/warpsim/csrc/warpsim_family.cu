@@ -4,10 +4,11 @@
 //
 // Build (what _cuda.py runs):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-//        -shared -Xcompiler -fPIC -o libwarpsim_family.so warpsim_family.cu
+//        -Xptxas -v -shared -Xcompiler -fPIC -o libwarpsim_family.so
+//        warpsim_family.cu
 //
 // Each entry point launches on the caller's stream, allocates nothing,
-// does not synchronise, and returns cudaGetLastError() of the launch.
+// does not synchronise, and returns the CUDA error of the launch.
 #include <cuda_runtime.h>
 
 #include "warpsim_family.cuh"
@@ -23,19 +24,35 @@ __global__ void ws_prep_kernel(const int64_t *up, const double *fp,
         ws_prep_unit_block(u, j, up, fp, blocks, nbytes, ctrl, si, ssvc);
 }
 
-// One single-thread block per unit, so each unit's chain runs on its own
-// SM instead of serialising with other units in one warp's lanes.
-__global__ void ws_family_kernel(const int64_t *up, const double *fp,
-                                 const int64_t *next0, const int64_t *end,
-                                 const int64_t *issue, const int8_t *kind,
-                                 const int64_t *blk_off,
-                                 const int64_t *blk_len, const int64_t *slot,
-                                 const int64_t *ctrl, const int64_t *si,
-                                 const double *ssvc, double *fscr,
-                                 int64_t *iscr, double *cycles,
-                                 int64_t *counts) {
-    ws_family_unit(blockIdx.x, up, fp, next0, end, issue, kind, blk_off,
-                   blk_len, slot, ctrl, si, ssvc, fscr, iscr, cycles, counts);
+// One warp (a 32-thread block) per unit, so each unit's chain runs on an SM
+// of its own. SHARED: the unit's state lies in dynamic shared memory (the
+// "shared" placement), else at its offsets in the global scratch
+// ("global"). The stage lies in static shared memory in both.
+template <bool SHARED>
+__global__ void __launch_bounds__(WS_LANES)
+ws_family_kernel(const int64_t *__restrict__ up, const double *__restrict__ fp,
+                 const int64_t *__restrict__ next0,
+                 const int64_t *__restrict__ end,
+                 const int64_t *__restrict__ issue,
+                 const int8_t *__restrict__ kind,
+                 const int64_t *__restrict__ blk_off,
+                 const int64_t *__restrict__ blk_len,
+                 const int64_t *__restrict__ slot,
+                 const int64_t *__restrict__ ctrl,
+                 const int64_t *__restrict__ si,
+                 const double *__restrict__ ssvc, int64_t *scratch,
+                 double *cycles, int64_t *counts) {
+    extern __shared__ __align__(16) int64_t ws_state[];
+    __shared__ WsStage stage;
+    const int64_t u = blockIdx.x;
+    const int64_t *p = up + u * WS_NI;
+    int64_t *small = SHARED ? ws_state : scratch + p[WS_SMALL_OFF];
+    int64_t *big = SHARED ? ws_state + ws_small_len(p)
+                          : scratch + p[WS_BIG_OFF];
+    WsWarpLanes lanes;
+    ws_family_unit(lanes, u, up, fp, next0, end, issue, kind, blk_off,
+                   blk_len, slot, ctrl, si, ssvc, small, big, stage, cycles,
+                   counts);
 }
 
 extern "C" int ws_prep_launch(const void *up, const void *fp,
@@ -55,21 +72,34 @@ extern "C" int ws_prep_launch(const void *up, const void *fp,
     return (int)cudaGetLastError();
 }
 
+// smem_bytes > 0: the "shared" placement, with that much dynamic shared
+// memory a block (the largest unit's state); 0: "global", with the
+// scratch holding every unit's state.
 extern "C" int ws_family_launch(const void *up, const void *fp,
                                 const void *next0, const void *end,
                                 const void *issue, const void *kind,
                                 const void *blk_off, const void *blk_len,
                                 const void *slot, const void *ctrl,
-                                const void *si, const void *ssvc, void *fscr,
-                                void *iscr, void *cycles, void *counts,
-                                int64_t n_units, void *stream) {
-    ws_family_kernel<<<(unsigned)n_units, 1, 0, (cudaStream_t)stream>>>(
+                                const void *si, const void *ssvc,
+                                void *scratch, void *cycles, void *counts,
+                                int64_t n_units, int64_t smem_bytes,
+                                void *stream) {
+    auto kernel = smem_bytes > 0 ? ws_family_kernel<true>
+                                 : ws_family_kernel<false>;
+    if (smem_bytes > 0) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem_bytes);
+        if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<(unsigned)n_units, WS_LANES, (size_t)smem_bytes,
+             (cudaStream_t)stream>>>(
         (const int64_t *)up, (const double *)fp, (const int64_t *)next0,
         (const int64_t *)end, (const int64_t *)issue, (const int8_t *)kind,
         (const int64_t *)blk_off, (const int64_t *)blk_len,
         (const int64_t *)slot, (const int64_t *)ctrl, (const int64_t *)si,
-        (const double *)ssvc, (double *)fscr, (int64_t *)iscr,
-        (double *)cycles, (int64_t *)counts);
+        (const double *)ssvc, (int64_t *)scratch, (double *)cycles,
+        (int64_t *)counts);
     return (int)cudaGetLastError();
 }
 

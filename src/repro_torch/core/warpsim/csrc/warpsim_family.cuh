@@ -5,21 +5,48 @@
 //   K1  _get_launch._prep_kernel (pallas_call in _prep, _pallas.py:192-229)
 //       -> ws_prep_block, launched per (unit, block) by ws_prep_kernel;
 //   K2  _get_launch._simulate_one (lax.while_loop vmapped over units,
-//       _pallas.py:233-407) -> ws_simulate_unit, one CUDA thread per unit
-//       in ws_family_kernel.
+//       _pallas.py:233-407) -> ws_simulate_unit, one warp per unit in
+//       ws_family_kernel.
 //
 // Bit-identity with the reference engines rests on doing the same IEEE-754
 // double operations in the same order: build with --fmad=false (nvcc) or
 // -ffp-contract=off (g++), since one contracted multiply-add changes the
 // last bit of a cycle count.
 //
-// What bounds it on the card: K2 is latency-bound. Each unit is one
-// dependent chain through simulated time (pop the earliest warp, issue one
-// op, update the L1/DRAM state the next op reads), so one thread walks it
-// with every step waiting on the loads of the step before. The design here
-// is the simple, right one: one thread per unit, all state in global
-// scratch. A later change redesigns it around a warp per unit (argmin over
-// ready times and the way search across lanes, state in shared memory).
+// What bounds it on the card: K2 is latency-bound, not bound by bytes or
+// operations. Each unit is one dependent chain through simulated time (pop
+// the earliest warp, issue one op, update the L1/DRAM state the next op
+// reads), so its time is the number of steps times the latency of one
+// step, and one warp alone on an SM hides none of it: every dependent
+// instruction costs its whole latency. The design shortens the step:
+//   - one warp per unit. Every lane runs the scalar recurrence redundantly
+//     (the same double operations, so the values stay warp-uniform in
+//     registers), and the lanes work together only where a step searches
+//     or fetches:
+//     - the pop: each lane keeps the first minimum of its own warps w =
+//       lane, lane + 32, ... (their ready times in registers, up to 256
+//       warps a unit), updated only by the lane whose warp changed; three
+//       32-bit warp reductions of an order-preserving key of the time and
+//       the warp then give the least time, lowest warp on ties: heapq's
+//       (time, warp) order;
+//     - the way search: lane y tests way y; the first hit, whether its
+//       line is filled by now, and the first empty way come from ballots;
+//       the LRU victim (least tick, lowest way on ties) from two more
+//       reductions;
+//     - the blocks of the op: the lanes copy up to 32 blocks' columns into
+//       a shared stage at once (cp.async), as soon as the warp is popped;
+//   - the state in shared memory where a unit's state fits a block's 227
+//     KB, else in global scratch (the "shared" and "global" placements of
+//     ws_family_kernel, picked per launch by the wrapper);
+//   - each warp's next op fetched one step of that warp ahead, its SM
+//     computed once, its state read as one 32-byte record, and indices,
+//     tags and LRU ticks in 32 bits (host-checked).
+// Nothing in the searches does floating-point arithmetic, so any correct
+// reduction gives the reference's answer; what must hold is the tie rule.
+// The searches and fetches have two forms over one lane-partitioned
+// layout: WsWarpLanes (shuffles, ballots and cp.async, on the card) and
+// WsHostLanes (the same lanes walked one after another, for the CPU tests'
+// g++ build).
 // K1 is a trivially parallel map bound by its bytes.
 #pragma once
 
@@ -28,8 +55,12 @@
 
 #ifdef __CUDACC__
 #define WS_HD __host__ __device__
+// The step body is one template for both forms of the searches; each
+// instantiation calls only the functions of its own side.
+#define WS_HD_TEMPLATE _Pragma("nv_exec_check_disable")
 #else
 #define WS_HD
+#define WS_HD_TEMPLATE
 #endif
 
 // Columns of the per-unit int64 parameter table `up` [units, WS_NI]. The
@@ -46,14 +77,19 @@ enum {
     WS_WAYS,
     WS_IDEAL,         // SW+ ideal coalescing (1) or not (0)
     WS_N_SLOTS,       // unique blocks of the stream: width of the outstanding table
-    WS_FSCR_OFF,      // first double of the unit's f64 scratch
-    WS_ISCR_OFF,      // first int64 of the unit's int64 scratch
+    WS_SMALL_OFF,     // first word of the unit's small state in the global scratch
+    WS_BIG_OFF,       // first word of the unit's L1 and SW+ state in the scratch
     WS_NI
 };
 
 // Columns of the per-unit double parameter table `fp` [units, WS_NF]
 // (FP_COLS in _cuda.py).
 enum { WS_HIT_LAT = 0, WS_DEPTH, WS_DRAM_LAT, WS_SVC, WS_NF };
+
+// Lanes of the warp that simulates one unit, and the warps of the unit
+// each lane keeps in registers.
+constexpr int WS_LANES = 32;
+constexpr int WS_K = 8;
 
 // K1 for one block: memory controller, L1 set and store occupancy. The
 // occupancy has a minimum 32 B burst and divides before it multiplies,
@@ -77,165 +113,507 @@ WS_HD inline void ws_prep_unit_block(int64_t u, int64_t j, const int64_t *up,
                   fp[u * WS_NF + WS_SVC], &ctrl[b], &si[b], &ssvc[b]);
 }
 
-// K2 for one unit: the scheduling recurrence of the timing model.
-//
-// Scratch layout (the sizes fscr_len / iscr_len in _cuda.py follow it):
-//   f64:   ready[n_warps] issue_free[n_sms] ctrl_free[nctrl]
-//          fills[n_sms*n_sets*ways] outstanding[ideal ? n_sms*n_slots : 0]
-//   int64: next[n_warps] tick_ctr[n_sms] tags[n_sms*n_sets*ways]
-//          ticks[n_sms*n_sets*ways]
-// L1 tags hold dense slot ids (the stream's unique blocks, remapped on the
-// host), -1 for an empty way. Ops index their unit's columns from 0.
+// The state of one warp of a unit: where it is in its ops, its SM, and the
+// columns of its next op, fetched one step of that warp ahead. Indices
+// within a unit are int32: marshal() checks that a unit's ops, blocks
+// (twice over, for the LRU ticks), slots and L1 lines each stay below 2^31.
+struct alignas(16) WsWarp {
+    int64_t issue;            // issue cycles of the warp's next op
+    int32_t next, end, sm;    // its next op, one past its last op, its SM
+    int32_t kind, off, len;   // the next op's kind and blocks
+};
+static_assert(sizeof(WsWarp) == 32, "four int64s a warp in the state");
+
+// A unit's state, in 8-byte words, in two parts (marshal() in _cuda.py
+// sizes them the same way):
+//   small: warps[n_warps] (WsWarp, 4 words each), then f64 ready[n_warps]
+//          issue_free[n_sms] ctrl_free[nctrl], then int32 tick_ctr[n_sms],
+//          padded to an even count of words;
+//   big:   f64 fills[n_sms*n_sets*ways] outstanding[ideal ? n_sms*n_slots
+//          : 0], then int32 tags[n_sms*n_sets*ways] ticks[n_sms*n_sets*ways]
+//          (the L1 lines and the SW+ table).
+// Tags (slot ids) and LRU ticks (at most two a block) are narrower than the
+// reference's int64, as marshal() checks that both fit. In the launch's
+// placement "shared" both parts lie in shared memory, small first; in
+// "global" at the unit's offsets (WS_SMALL_OFF, WS_BIG_OFF) in the global
+// scratch.
+WS_HD inline int64_t ws_lines(const int64_t *p) {
+    return p[WS_N_SMS] * p[WS_N_SETS] * p[WS_WAYS];
+}
+WS_HD inline int64_t ws_small_len(const int64_t *p) {
+    const int64_t n = 5 * p[WS_N_WARPS] + p[WS_N_SMS] + p[WS_NCTRL] +
+                      (p[WS_N_SMS] + 1) / 2;
+    return n + (n & 1);
+}
+
+// Up to 32 blocks of the op being issued, fetched by the lanes together.
+struct WsStage {
+    int64_t slot[WS_LANES], si[WS_LANES], ctrl[WS_LANES];
+    double ssvc[WS_LANES];
+};
+
+// (t, w) comes before (t2, w2): the least time, the lowest id on ties.
+template <typename T>
+WS_HD inline bool ws_before(T t, int64_t w, T t2, int64_t w2) {
+    return t < t2 || (t == t2 && w < w2);
+}
+
+// Host form of the searches: lane l of the device form is the l-th pass of
+// a loop here, over the same layout (lane l owns warps l, l + 32, ... and
+// tests ways l, l + 32, ...).
+struct WsHostLanes {
+    double lt[WS_LANES];    // lane l's first minimum of its warps' ready
+    int64_t lw[WS_LANES];   // ... and its warp, -1 when all are inf
+
+    int first() const { return 0; }
+    int stride() const { return 1; }
+    void sync() {}
+    // f(x) for x < n (n <= 32): the lanes' items, one after another.
+    template <class F> void each(int n, F &&f) const {
+        for (int x = 0; x < n; x++) f(x);
+    }
+    template <typename T> void fetch(T *dst, const T *src) const { *dst = *src; }
+    void fetched() const {}
+
+    void refresh_lane(int l, const double *ready, int nw) {
+        double t = INFINITY;
+        int64_t w = -1;
+        for (int j = l; j < nw; j += WS_LANES)
+            if (ready[j] < t) {
+                t = ready[j];
+                w = j;
+            }
+        lt[l] = t;
+        lw[l] = w;
+    }
+    void start(const double *ready, int nw) {
+        for (int l = 0; l < WS_LANES; l++) refresh_lane(l, ready, nw);
+    }
+    // ready[w] changed (to the value it now holds): only its lane's
+    // minimum can have moved.
+    void changed(const double *ready, int nw, int w, double) {
+        refresh_lane(w % WS_LANES, ready, nw);
+    }
+    // The first minimum of ready over all warps; -1 when every warp is inf.
+    int pop(double *t_out) const {
+        double t = lt[0];
+        int64_t w = lw[0];
+        for (int l = 1; l < WS_LANES; l++)
+            if (ws_before(lt[l], lw[l], t, w)) {
+                t = lt[l];
+                w = lw[l];
+            }
+        *t_out = t;
+        return (int)w;
+    }
+    // The first way of a set (tags and fills at its row) that holds slot
+    // s, else -1; *fresh whether that way's line is filled by time t;
+    // *empty the first way that holds nothing (-1 if none), valid when no
+    // way holds s.
+    static int find_way(const int32_t *tags, const double *fills, int ways,
+                        int s, double t, int *empty, bool *fresh) {
+        *empty = -1;
+        *fresh = false;
+        for (int y0 = 0; y0 < ways; y0 += WS_LANES) {
+            uint32_t hit = 0, filled = 0, free_ways = 0;
+            for (int l = 0; l < WS_LANES; l++) {
+                const int y = y0 + l;
+                const int tag = y < ways ? tags[y] : -2;
+                hit |= (uint32_t)(tag == s) << l;
+                filled |= (uint32_t)(tag == s && fills[y] <= t) << l;
+                free_ways |= (uint32_t)(tag == -1) << l;
+            }
+            if (*empty < 0 && free_ways) *empty = y0 + __builtin_ctz(free_ways);
+            if (hit) {
+                const int l = __builtin_ctz(hit);
+                *fresh = (filled >> l) & 1;
+                return y0 + l;
+            }
+        }
+        return -1;
+    }
+    // The LRU way of a full set: the least tick, the lowest way on ties.
+    static int victim(const int32_t *ticks, int ways) {
+        int64_t bt = INT64_MAX, bw = INT64_MAX;
+        for (int l = 0; l < WS_LANES && l < ways; l++) {
+            int64_t t = ticks[l], w = l;
+            for (int y = l + WS_LANES; y < ways; y += WS_LANES)
+                if (ticks[y] < t) {
+                    t = ticks[y];
+                    w = y;
+                }
+            if (ws_before(t, w, bt, bw)) {
+                bt = t;
+                bw = w;
+            }
+        }
+        return (int)bw;
+    }
+};
+
+#ifdef __CUDACC__
+// Device form of the searches and fetches: lane l of the unit's warp holds
+// what lane l of WsHostLanes holds; ballots, shuffles and warp reductions
+// combine the lanes, and cp.async copies an op's blocks.
+struct WsWarpLanes {
+    static constexpr unsigned ALL = 0xffffffffu;
+    double lt;   // this lane's first minimum of its warps' ready
+    int lw;      // ... and its warp, -1 when all are inf
+    unsigned key_hi, key_lo;  // lt as an unsigned key of the same order
+    double v[WS_K];  // ready of warps lane, lane + 32, ... (up to 256 warps)
+    int lane;
+
+    __device__ WsWarpLanes()
+        : lt(INFINITY), lw(-1), lane(threadIdx.x % WS_LANES) {}
+
+    // Keys order as the doubles do (no NaN reaches the ready times): the
+    // sign bit flipped for t >= 0, every bit for t < 0, and -0 keyed as +0
+    // since the two compare equal.
+    __device__ void set_key() {
+        const unsigned long long b =
+            (unsigned long long)__double_as_longlong(lt == 0.0 ? 0.0 : lt);
+        const unsigned long long k =
+            (b >> 63) ? ~b : b | 0x8000000000000000ull;
+        key_hi = (unsigned)(k >> 32);
+        key_lo = (unsigned)k;
+    }
+    __device__ int first() const { return lane; }
+    __device__ int stride() const { return WS_LANES; }
+    __device__ void sync() { __syncwarp(); }
+    // f(x) for x < n (n <= 32): lane x does item x.
+    template <class F> __device__ void each(int n, F &&f) const {
+        if (lane < n) f(lane);
+    }
+    // 8 bytes from global memory into the stage, in shared memory, without
+    // waiting: the copy overlaps what the step does before fetched().
+    template <typename T>
+    __device__ void fetch(T *dst, const T *src) const {
+        static_assert(sizeof(T) == 8, "the stage holds 8-byte columns");
+        const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                     "l"(src)
+                     : "memory");
+    }
+    __device__ void fetched() const {
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncwarp();
+    }
+
+    // The first minimum of v (warps w0, w0 + 32, ...): a tree of compares,
+    // the left operand (the lower warp) winning ties.
+    __device__ static void tree_min(double (&v)[WS_K], int w0, double *t,
+                                    int *w) {
+        double u[WS_K];
+        int uw[WS_K];
+#pragma unroll
+        for (int k = 0; k < WS_K; k++) {
+            u[k] = v[k];
+            uw[k] = w0 + k * WS_LANES;
+        }
+#pragma unroll
+        for (int h = 1; h < WS_K; h *= 2)
+#pragma unroll
+            for (int k = 0; k < WS_K; k += 2 * h)
+                if (u[k + h] < u[k]) {
+                    u[k] = u[k + h];
+                    uw[k] = uw[k + h];
+                }
+        *t = u[0];
+        *w = u[0] < INFINITY ? uw[0] : -1;
+    }
+    // The first minimum of this lane's warps. Up to 256 warps a unit the
+    // lane keeps its warps' ready times in registers (v); above, it scans
+    // them in shared memory, WS_K loads in flight at once.
+    __device__ void scan(const double *ready, int nw) {
+        double t = INFINITY;
+        int w = -1;
+        for (int j0 = lane; j0 < nw; j0 += WS_K * WS_LANES) {
+#pragma unroll
+            for (int k = 0; k < WS_K; k++)
+                v[k] = j0 + k * WS_LANES < nw ? ready[j0 + k * WS_LANES]
+                                              : INFINITY;
+            double tj;
+            int wj;
+            tree_min(v, j0, &tj, &wj);
+            if (tj < t) {
+                t = tj;
+                w = wj;
+            }
+        }
+        lt = t;
+        lw = w;
+        set_key();
+    }
+    __device__ void start(const double *ready, int nw) { scan(ready, nw); }
+    // ready[w] changed to t: only its lane's minimum can have moved, and
+    // that lane alone updates it.
+    __device__ void changed(const double *ready, int nw, int w, double t) {
+        if ((w & (WS_LANES - 1)) != lane) return;
+        if (nw > WS_K * WS_LANES) {
+            scan(ready, nw);
+            return;
+        }
+        const int kw = w / WS_LANES;
+#pragma unroll
+        for (int k = 0; k < WS_K; k++)
+            if (k == kw) v[k] = t;
+        tree_min(v, lane, &lt, &lw);
+        set_key();
+    }
+    // Three warp reductions of 32-bit keys: the high half of the least
+    // time, its low half, then the lowest warp holding it (-1, all bits
+    // set, only when every time is inf). The time itself comes from the
+    // lane that holds the warp.
+    __device__ int pop(double *t_out) const {
+        const unsigned hi = __reduce_min_sync(ALL, key_hi);
+        const unsigned lo =
+            __reduce_min_sync(ALL, key_hi == hi ? key_lo : 0xffffffffu);
+        const int w = (int)__reduce_min_sync(
+            ALL, key_hi == hi && key_lo == lo ? (unsigned)lw : 0xffffffffu);
+        *t_out = __shfl_sync(ALL, lt, w & (WS_LANES - 1));
+        return w;
+    }
+    __device__ int find_way(const int32_t *tags, const double *fills,
+                            int ways, int s, double t, int *empty,
+                            bool *fresh) const {
+        *empty = -1;
+        *fresh = false;
+        for (int y0 = 0; y0 < ways; y0 += WS_LANES) {
+            const int y = y0 + lane;
+            const int tag = y < ways ? tags[y] : -2;
+            const double fill = y < ways ? fills[y] : 0.0;
+            const unsigned hit = __ballot_sync(ALL, tag == s);
+            const unsigned filled = __ballot_sync(ALL, tag == s && fill <= t);
+            const unsigned free_ways = __ballot_sync(ALL, tag == -1);
+            if (*empty < 0 && free_ways) *empty = y0 + __ffs(free_ways) - 1;
+            if (hit) {
+                const int l = __ffs(hit) - 1;
+                *fresh = (filled >> l) & 1;
+                return y0 + l;
+            }
+        }
+        return -1;
+    }
+    // Ticks are never negative, so two 32-bit reductions do: the least
+    // tick, then the lowest way holding it.
+    __device__ int victim(const int32_t *ticks, int ways) const {
+        unsigned t = 0xffffffffu, w = 0xffffffffu;
+        if (lane < ways) {
+            t = (unsigned)ticks[lane];
+            w = lane;
+            for (int y = lane + WS_LANES; y < ways; y += WS_LANES)
+                if ((unsigned)ticks[y] < t) {
+                    t = (unsigned)ticks[y];
+                    w = y;
+                }
+        }
+        const unsigned least = __reduce_min_sync(ALL, t);
+        return (int)__reduce_min_sync(ALL, t == least ? w : 0xffffffffu);
+    }
+};
+#endif
+
+// K2 for one unit: the scheduling recurrence of the timing model, with the
+// searches and fetches of `lanes` (WsWarpLanes or WsHostLanes). `small` /
+// `big` are the two parts of the unit's state (layout above), `st` the
+// stage. L1 tags hold dense slot ids (the stream's unique blocks, remapped
+// on the host), -1 for an empty way. Ops index their unit's columns from 0.
+WS_HD_TEMPLATE
+template <class Lanes>
 WS_HD inline void ws_simulate_unit(
-    const int64_t *p, const double *f,
+    Lanes &lanes, const int64_t *p, const double *f,
     const int64_t *next0, const int64_t *end,
     const int64_t *issue, const int8_t *kind,
     const int64_t *blk_off, const int64_t *blk_len,
     const int64_t *slot, const int64_t *ctrl, const int64_t *si,
-    const double *ssvc, double *fscr, int64_t *iscr,
+    const double *ssvc, int64_t *small, int64_t *big, WsStage &st,
     double *cycles, int64_t *counts) {
-    const int64_t nw = p[WS_N_WARPS], n_sms = p[WS_N_SMS];
-    const int64_t nctrl = p[WS_NCTRL], n_sets = p[WS_N_SETS];
-    const int64_t ways = p[WS_WAYS], ideal = p[WS_IDEAL];
-    const int64_t n_slots = p[WS_N_SLOTS];
+    const int nw = (int)p[WS_N_WARPS], n_sms = (int)p[WS_N_SMS];
+    const int nctrl = (int)p[WS_NCTRL], n_sets = (int)p[WS_N_SETS];
+    const int ways = (int)p[WS_WAYS], ideal = (int)p[WS_IDEAL];
+    const int n_slots = (int)p[WS_N_SLOTS];
     const double hit_lat = f[WS_HIT_LAT], depth = f[WS_DEPTH];
     const double dram_lat = f[WS_DRAM_LAT], svc_unit = f[WS_SVC];
     const double inf = INFINITY;
-    const int64_t lines = n_sms * n_sets * ways;
+    const int lines = (int)ws_lines(p);
 
-    double *ready = fscr;
+    WsWarp *warps = (WsWarp *)small;
+    double *ready = (double *)(small + 4 * (int64_t)nw);
     double *issue_free = ready + nw;
     double *ctrl_free = issue_free + n_sms;
-    double *fills = ctrl_free + nctrl;
+    int32_t *tick_ctr = (int32_t *)(ctrl_free + nctrl);
+    double *fills = (double *)big;
     double *outst = fills + lines;
-    int64_t *next = iscr;
-    int64_t *tick_ctr = next + nw;
-    int64_t *tags = tick_ctr + n_sms;
-    int64_t *ticks = tags + lines;
+    int32_t *tags = (int32_t *)(outst + (ideal ? (int64_t)n_sms * n_slots : 0));
+    int32_t *ticks = tags + lines;
 
-    // A warp with no ops is never ready.
-    for (int64_t w = 0; w < nw; w++) {
-        next[w] = next0[w];
-        ready[w] = next0[w] < end[w] ? 0.0 : inf;
+    // The lanes set the state in parallel. A warp with no ops is never
+    // ready; warps map to SMs as min(w * n_sms / nw, n_sms - 1).
+    const int x0 = lanes.first(), dx = lanes.stride();
+    for (int w = x0; w < nw; w += dx) {
+        const int i = (int)next0[w], e = (int)end[w];
+        const int sm = (int)((int64_t)w * n_sms / nw);
+        WsWarp r = {0, i, e, sm < n_sms - 1 ? sm : n_sms - 1, 0, 0, 0};
+        if (i < e) {
+            r.issue = issue[i];
+            r.kind = kind[i];
+            r.off = (int)blk_off[i];
+            r.len = (int)blk_len[i];
+        }
+        warps[w] = r;
+        ready[w] = i < e ? 0.0 : inf;
     }
-    for (int64_t s = 0; s < n_sms; s++) {
+    for (int s = x0; s < n_sms; s += dx) {
         issue_free[s] = 0.0;
         tick_ctr[s] = 0;
     }
-    for (int64_t c = 0; c < nctrl; c++) ctrl_free[c] = 0.0;
-    for (int64_t l = 0; l < lines; l++) {
+    for (int c = x0; c < nctrl; c += dx) ctrl_free[c] = 0.0;
+    for (int l = x0; l < lines; l += dx) {
         tags[l] = -1;
         ticks[l] = 0;
         fills[l] = 0.0;
     }
     if (ideal)
-        for (int64_t k = 0; k < n_sms * n_slots; k++) outst[k] = -inf;
+        for (int k = x0; k < n_sms * n_slots; k += dx) outst[k] = -inf;
+    lanes.sync();
+    lanes.start(ready, nw);
 
     int64_t offchip = 0, merged = 0, l1_hits = 0;
     for (;;) {
-        // Pop the first minimum of the ready times (strict <): on ties the
-        // lowest warp id wins, heapq's (time, warp) order.
-        int64_t w = -1;
-        double ready_t = inf;
-        for (int64_t j = 0; j < nw; j++)
-            if (ready[j] < ready_t) {
-                ready_t = ready[j];
-                w = j;
-            }
+        // Pop the first minimum of the ready times: on ties the lowest warp
+        // id wins, heapq's (time, warp) order.
+        double ready_t;
+        const int w = lanes.pop(&ready_t);
         if (w < 0) break;
-        int64_t sm = w * n_sms / nw;
-        if (sm > n_sms - 1) sm = n_sms - 1;
-        const int64_t i = next[w];
+        const WsWarp r = warps[w];
+        const int kind_i = r.kind, o = r.off, n_blk = r.len;
+        // The lanes start fetching the op's first 32 blocks at once.
+        const int gn0 = kind_i == 0 ? 0 : n_blk < WS_LANES ? n_blk : WS_LANES;
+        lanes.each(gn0, [&](int x) {
+            lanes.fetch(&st.ctrl[x], ctrl + o + x);
+            if (kind_i == 1) {
+                lanes.fetch(&st.slot[x], slot + o + x);
+                lanes.fetch(&st.si[x], si + o + x);
+            } else {
+                lanes.fetch(&st.ssvc[x], ssvc + o + x);
+            }
+        });
+        const int sm = r.sm;
+        const int i = r.next;
+        // Fetch the columns of the warp's following op now: they are read
+        // when the warp is popped again, and the fetch overlaps this step.
+        const bool more = i + 1 < r.end;
+        const int j = more ? i + 1 : i;
+        const int64_t issue_j = issue[j];
+        const int kind_j = kind[j];
+        const int off_j = (int)blk_off[j], len_j = (int)blk_len[j];
         const double free_t = issue_free[sm];
         const double t_acc = (ready_t > free_t ? ready_t : free_t)
-                             + (double)issue[i];
+                             + (double)r.issue;
         issue_free[sm] = t_acc;
-        const int64_t o = blk_off[i], n_blk = blk_len[i];
         double warp_ready;
 
-        if (kind[i] == 0) {                       // compute
+        if (kind_i == 0) {                        // compute
             warp_ready = t_acc + depth;
-        } else if (kind[i] == 1) {                // load
+        } else if (kind_i == 1) {                 // load
             double done = t_acc + hit_lat;
-            int64_t tick = tick_ctr[sm];
-            for (int64_t b = o; b < o + n_blk; b++) {
-                const int64_t s = slot[b];
-                const int64_t row = (sm * n_sets + si[b]) * ways;
-                // Every lookup is one LRU touch tick; pending lines are
-                // visible with their fill time.
-                tick++;
-                int64_t way = -1;
-                for (int64_t y = 0; y < ways; y++)
-                    if (tags[row + y] == s) {
-                        way = y;
-                        break;
-                    }
-                if (way >= 0) {
-                    ticks[row + way] = tick;
-                    if (fills[row + way] <= t_acc) {
-                        l1_hits++;
-                        continue;
-                    }
+            int tick = tick_ctr[sm];
+            const int set0 = sm * n_sets;
+            for (int g = 0; g < n_blk; g += WS_LANES) {
+                const int gn = n_blk - g < WS_LANES ? n_blk - g : WS_LANES;
+                if (g > 0) {                      // blocks 32 and on
+                    lanes.sync();
+                    lanes.each(gn, [&](int x) {
+                        lanes.fetch(&st.slot[x], slot + o + g + x);
+                        lanes.fetch(&st.si[x], si + o + g + x);
+                        lanes.fetch(&st.ctrl[x], ctrl + o + g + x);
+                    });
                 }
-                // SW+: merge with an in-flight request to the same block.
-                // Read before any update of this block's entry.
-                if (ideal) {
-                    const double out = outst[sm * n_slots + s];
-                    if (out > t_acc) {
+                lanes.fetched();
+                for (int q = 0; q < gn; q++) {
+                    const int s = (int)st.slot[q];
+                    const int row = (set0 + (int)st.si[q]) * ways;
+                    const int c = (int)st.ctrl[q];
+                    // What this block reads of the SW+ table and its memory
+                    // controller, loaded before the way search: no store of
+                    // this iteration comes before their reads below.
+                    const double out = ideal ? outst[sm * n_slots + s] : 0.0;
+                    const double cf = ctrl_free[c];
+                    // Every lookup is one LRU touch tick; pending lines are
+                    // visible with their fill time.
+                    tick++;
+                    int empty;
+                    bool fresh;
+                    int way = lanes.find_way(tags + row, fills + row, ways, s,
+                                             t_acc, &empty, &fresh);
+                    if (way >= 0) {
+                        ticks[row + way] = tick;
+                        if (fresh) {              // fills[row + way] <= t_acc
+                            l1_hits++;
+                            continue;
+                        }
+                    }
+                    // SW+: merge with an in-flight request to the same
+                    // block. Read before any update of this block's entry.
+                    if (ideal && out > t_acc) {
                         merged++;
                         if (out > done) done = out;
                         continue;
                     }
-                }
-                // DRAM request (a full 64 B read transaction).
-                const int64_t c = ctrl[b];
-                const double cf = ctrl_free[c];
-                const double start = cf > t_acc ? cf : t_acc;
-                ctrl_free[c] = start + svc_unit;
-                const double completion = start + dram_lat + svc_unit;
-                offchip++;
-                // L1 fill or pending-line allocation: a second tick.
-                tick++;
-                if (way >= 0) {
-                    if (completion < fills[row + way])
+                    // DRAM request (a full 64 B read transaction).
+                    const double start = cf > t_acc ? cf : t_acc;
+                    ctrl_free[c] = start + svc_unit;
+                    const double completion = start + dram_lat + svc_unit;
+                    offchip++;
+                    // L1 fill or pending-line allocation: a second tick.
+                    tick++;
+                    if (way >= 0) {
+                        if (completion < fills[row + way])
+                            fills[row + way] = completion;
+                    } else {
+                        // The first empty way, else the first valid way with
+                        // the least tick (ticks are unique per SM). No tag
+                        // changed since find_way looked for the empty way.
+                        way = empty >= 0 ? empty
+                                         : lanes.victim(ticks + row, ways);
+                        tags[row + way] = s;
                         fills[row + way] = completion;
-                } else {
-                    // The first empty way, else the first valid way with the
-                    // least tick (ticks are unique per SM).
-                    for (int64_t y = 0; y < ways; y++)
-                        if (tags[row + y] == -1) {
-                            way = y;
-                            break;
-                        }
-                    if (way < 0) {
-                        way = 0;
-                        for (int64_t y = 1; y < ways; y++)
-                            if (ticks[row + y] < ticks[row + way]) way = y;
                     }
-                    tags[row + way] = s;
-                    fills[row + way] = completion;
+                    ticks[row + way] = tick;
+                    if (ideal) outst[sm * n_slots + s] = completion;
+                    if (completion > done) done = completion;
                 }
-                ticks[row + way] = tick;
-                if (ideal) outst[sm * n_slots + s] = completion;
-                if (completion > done) done = completion;
             }
             tick_ctr[sm] = tick;
             warp_ready = done;
         } else {                                  // store: fire and forget
-            for (int64_t b = o; b < o + n_blk; b++) {
-                const int64_t c = ctrl[b];
-                const double cf = ctrl_free[c];
-                ctrl_free[c] = (cf > t_acc ? cf : t_acc) + ssvc[b];
+            for (int g = 0; g < n_blk; g += WS_LANES) {
+                const int gn = n_blk - g < WS_LANES ? n_blk - g : WS_LANES;
+                if (g > 0) {
+                    lanes.sync();
+                    lanes.each(gn, [&](int x) {
+                        lanes.fetch(&st.ctrl[x], ctrl + o + g + x);
+                        lanes.fetch(&st.ssvc[x], ssvc + o + g + x);
+                    });
+                }
+                lanes.fetched();
+                for (int q = 0; q < gn; q++) {
+                    const int c = (int)st.ctrl[q];
+                    const double cf = ctrl_free[c];
+                    ctrl_free[c] = (cf > t_acc ? cf : t_acc) + st.ssvc[q];
+                }
             }
             offchip += n_blk;
             warp_ready = t_acc + hit_lat;
         }
-        next[w] = i + 1;
-        ready[w] = i + 1 < end[w] ? warp_ready : inf;
+        warps[w] = WsWarp{issue_j, i + 1, r.end, sm, kind_j, off_j, len_j};
+        const double ready_w = more ? warp_ready : inf;
+        ready[w] = ready_w;
+        lanes.changed(ready, nw, w, ready_w);
     }
 
     double cyc = 0.0;
-    for (int64_t s = 0; s < n_sms; s++)
+    for (int s = 0; s < n_sms; s++)
         if (issue_free[s] > cyc) cyc = issue_free[s];
     *cycles = cyc;
     counts[0] = offchip;
@@ -243,19 +621,22 @@ WS_HD inline void ws_simulate_unit(
     counts[2] = l1_hits;
 }
 
-// K2 for unit u of a family (all pointers are family bases).
+// K2 for unit u of a family (all pointers but small / big, the two parts of
+// the unit's own state, are family bases).
+WS_HD_TEMPLATE
+template <class Lanes>
 WS_HD inline void ws_family_unit(
-    int64_t u, const int64_t *up, const double *fp,
+    Lanes &lanes, int64_t u, const int64_t *up, const double *fp,
     const int64_t *next0, const int64_t *end,
     const int64_t *issue, const int8_t *kind,
     const int64_t *blk_off, const int64_t *blk_len,
     const int64_t *slot, const int64_t *ctrl, const int64_t *si,
-    const double *ssvc, double *fscr, int64_t *iscr,
+    const double *ssvc, int64_t *small, int64_t *big, WsStage &st,
     double *cycles, int64_t *counts) {
     const int64_t *p = up + u * WS_NI;
     const int64_t wo = p[WS_WARP_OFF], oo = p[WS_OP_OFF], bo = p[WS_BLK_OFF];
-    ws_simulate_unit(p, fp + u * WS_NF, next0 + wo, end + wo, issue + oo,
-                     kind + oo, blk_off + oo, blk_len + oo, slot + bo,
-                     ctrl + bo, si + bo, ssvc + bo, fscr + p[WS_FSCR_OFF],
-                     iscr + p[WS_ISCR_OFF], cycles + u, counts + 3 * u);
+    ws_simulate_unit(lanes, p, fp + u * WS_NF, next0 + wo, end + wo,
+                     issue + oo, kind + oo, blk_off + oo, blk_len + oo,
+                     slot + bo, ctrl + bo, si + bo, ssvc + bo, small, big, st,
+                     cycles + u, counts + 3 * u);
 }

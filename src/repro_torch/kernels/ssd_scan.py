@@ -4,11 +4,12 @@ Per chunk of ``chunk`` steps, with ``cs = cumsum(da)``:
 ``y = (C Bᵀ ∘ L) xdt + (C ∘ exp(cs)) h_prevᵀ`` and
 ``h = h_prev exp(cs_last) + xdtᵀ (B ∘ exp(cs_last - cs))``, the state h
 starting at 0 and carried across chunks in float32, no D-skip. On a CUDA
-tensor :func:`ssd_scan_kernel` launches ``ssd_scan_kernel``
-(``csrc/ssd_scan.cu``, CUDA C++ for ``sm_90a``: one block per (bh,
-chunk), handing the state on from chunk to chunk through a float32
-scratch this wrapper allocates) or raises; only a CPU tensor takes the
-plain version (``ref.ssd_scan_ref``).
+tensor :func:`ssd_scan_kernel` launches K6 (``csrc/ssd_scan.cu``, CUDA
+C++ for ``sm_90a``, float32 products register-tiled on the CUDA cores) or
+raises; only a CPU tensor takes the plain version (``ref.ssd_scan_ref``).
+K6 is three launches on the stream: each chunk's own state, the states
+passed from chunk to chunk, each chunk's outputs. They share a float32
+scratch this wrapper allocates, and count as one launch of K6.
 """
 
 from __future__ import annotations
@@ -59,8 +60,9 @@ def ssd_scan_kernel(xdt: torch.Tensor, da: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"N={n}, P={p} and chunk={chunk} must be at most "
                          f"{MAX_STATE}, {MAX_HEAD_DIM} and {MAX_CHUNK} on "
                          "the card")
-    if bh * (s // chunk) >= 2 ** 31:
-        raise ValueError(f"BH x S/chunk = {bh * (s // chunk)} exceeds one "
+    tiles = bh * (s // chunk) * -(-chunk // 64)
+    if tiles >= 2 ** 31:
+        raise ValueError(f"BH x S/chunk x chunk/64 = {tiles} exceeds one "
                          "launch grid")
     dev = xdt.device
     _lib.check_tensor("xdt", xdt, tuple(_DTYPE_CODE), dev)
@@ -69,15 +71,15 @@ def ssd_scan_kernel(xdt: torch.Tensor, da: torch.Tensor, b: torch.Tensor,
     y = torch.empty_like(xdt)
     if xdt.numel() == 0 or n == 0:
         return y.zero_()
-    blocks = bh * (s // chunk)
-    # h after each (bh, chunk), and [ticket, flag per (bh, chunk)].
-    states = torch.empty((blocks, p, n), dtype=torch.float32, device=dev)
-    sync = torch.zeros((1 + blocks,), dtype=torch.int32, device=dev)
+    chunks = bh * (s // chunk)
+    # Each chunk's state, then the state it starts from; exp(cs_last).
+    states = torch.empty((chunks, p, n), dtype=torch.float32, device=dev)
+    decay = torch.empty((chunks,), dtype=torch.float32, device=dev)
     lib = _lib.library(KERNEL, _bind)
     with torch.cuda.device(dev):
         code = lib.ssd_scan_launch(
             xdt.data_ptr(), da.data_ptr(), b.data_ptr(), c.data_ptr(),
-            y.data_ptr(), states.data_ptr(), sync.data_ptr(), bh, s, p, n,
+            y.data_ptr(), states.data_ptr(), decay.data_ptr(), bh, s, p, n,
             chunk, _DTYPE_CODE[xdt.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     _lib.check_launch(lib, KERNEL, code)

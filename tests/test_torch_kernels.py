@@ -557,7 +557,11 @@ def test_flash_kernel_within_tolerance_on_card(card, bh, s, hd, causal,
 @pytest.mark.gpu
 @pytest.mark.parametrize("bh,s,p,n,q", [
     (2, 64, 16, 8, 16), (3, 128, 32, 16, 32), (1, 256, 64, 32, 64),
-    (2, 64, 50, 16, 16), (2, 512, 64, 128, 256)])
+    (2, 64, 50, 16, 16), (2, 512, 64, 128, 256),
+    # K6's tile edges: q and P not multiples of its 64-wide tiles, P and N
+    # past 64, N and P not multiples of 4.
+    (2, 320, 50, 16, 160), (2, 96, 100, 72, 48), (1, 200, 66, 36, 100),
+    (1, 130, 64, 30, 65)])
 def test_ssd_kernel_within_tolerance_on_card(card, bh, s, p, n, q):
     args = [torch.from_numpy(a).to(card) for a in _ssd_inputs(bh, s, p, n)]
     before = _lib.launch_count("ssd_scan_kernel")

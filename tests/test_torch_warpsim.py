@@ -9,8 +9,10 @@ reference engine is bit-identical to every other.
 * Host stages: ThreadTrace / WarpStream columns equal the reference's.
 * Plain kernels (``prep_ref`` + ``simulate_family_ref``) equal the
   reference family launch (Pallas, interpreted on the CPU) and the C core.
-* The CUDA source's recurrence, built for the host with g++, equals the
-  C core.
+* The CUDA source's recurrence, built for the host with g++ (the host
+  form of the warp's searches), equals the C core in both placements of
+  K2's state, on the paper grid's seed-0 families and on odd, 16-SM and
+  wider-than-32-way geometries; the searches alone keep the tie rules.
 * The slice end to end: Session/Study records equal the reference's.
 * ``gpu``-marked tests run the kernels against their plain versions on a
   card and skip without one:
@@ -38,7 +40,7 @@ from repro.core.warpsim import _native, _pallas
 from repro.core.warpsim import api as rapi
 from repro.core.warpsim import divergence as rdiv
 from repro.core.warpsim import machines as rmachines
-from repro.core.warpsim.trace import Workload, get_workload
+from repro.core.warpsim.trace import BENCHMARKS, Workload, get_workload
 from repro_torch.core.warpsim import _cuda
 from repro_torch.core.warpsim import api as tapi
 from repro_torch.core.warpsim import config as tconfig
@@ -238,60 +240,250 @@ else:
 # ------------------------------- (d) the CUDA source, built for the host
 
 
-def _host_lib(tmp_path):
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the kernel source for the host")
-    so = str(tmp_path / "libwarpsim_host.so")
+    so = str(tmp_path_factory.mktemp("host") / "libwarpsim_host.so")
     src = os.path.join(PORT, "core", "warpsim", "csrc", "warpsim_host.cpp")
     proc = subprocess.run(
         [gxx, "-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
          "-o", so, src], capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(so)
-    lib.ws_host_family.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int64]
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.ws_host_family.argtypes = [ptr] * 18 + [i64]
     lib.ws_host_family.restype = ctypes.c_int
+    i32 = ctypes.c_int
+    lib.ws_host_pops.argtypes = [ptr, i32, ptr, i64, ptr]
+    lib.ws_host_pops.restype = i64
+    lib.ws_host_find_way.argtypes = [ptr, ptr, i32, i32, ctypes.c_double,
+                                     ptr, ptr]
+    lib.ws_host_find_way.restype = i32
+    lib.ws_host_victim.argtypes = [ptr, i32]
+    lib.ws_host_victim.restype = i32
     return lib
 
 
-def _host_family(lib, fam):
-    """Run the host build over a CPU family; scratch starts as garbage, so
-    the recurrence must initialise every piece of state it reads."""
+def _host_family(lib, fam, placement):
+    """Run the host build over a CPU family in `placement` (``"global"``:
+    every unit's state in the scratch; ``"shared"``: each unit's state
+    carved from one buffer, as a block carves its shared memory). State
+    starts as garbage, so the recurrence must initialise every piece of
+    state it reads."""
     n = fam.blocks.shape[0]
     ctrl = torch.full((n,), -7, dtype=torch.int64)
     si = torch.full((n,), -7, dtype=torch.int64)
     ssvc = torch.full((n,), float("nan"), dtype=torch.float64)
-    fscr = torch.full((max(fam.fscr_len, 1),), float("nan"),
-                      dtype=torch.float64)
-    iscr = torch.full((max(fam.iscr_len, 1),), -7, dtype=torch.int64)
+    # 0x7ff8... is a NaN as a double and a large negative-free int.
+    scratch = torch.full((max(fam.scratch_len, 1),), 0x7FF8DEAD7FF8DEAD,
+                         dtype=torch.int64)
+    shared = torch.full((max(fam.state_bytes // 8, 1),), 0x7FF8DEAD7FF8DEAD,
+                        dtype=torch.int64)
     cycles = torch.empty(fam.n_units, dtype=torch.float64)
     counts = torch.empty((fam.n_units, 3), dtype=torch.int64)
     rc = lib.ws_host_family(*(t.data_ptr() for t in (
         fam.up, fam.fp, fam.next0, fam.end, fam.issue, fam.kind,
         fam.blk_off, fam.blk_len, fam.blocks, fam.nbytes, fam.slot, ctrl,
-        si, ssvc, fscr, iscr, cycles, counts)), fam.n_units)
+        si, ssvc, scratch)),
+        shared.data_ptr() if placement == "shared" else None,
+        cycles.data_ptr(), counts.data_ptr(), fam.n_units)
     assert rc == 0
     return (ctrl, si, ssvc), cycles, counts
 
 
-def test_cuda_source_host_build_matches_native(tmp_path):
-    lib = _host_lib(tmp_path)
+def _check_host_build(lib, wl, cfgs):
+    """The host build equals the C core on one family, in both
+    placements; returns the family (marshalled on the CPU)."""
+    ref, port = _family_pairs(wl, cfgs)
+    fam = _cuda.marshal([(_cuda.stream_cols(s), c) for s, c in port],
+                        device="cpu")
+    want = _native_loops(ref)
+    for placement in _cuda.PLACEMENTS:
+        prepped, cycles, counts = _host_family(lib, fam, placement)
+        for got, exp in zip(prepped, _cuda.prep_ref(fam.up, fam.fp,
+                                                    fam.blocks, fam.nbytes)):
+            assert torch.equal(got, exp), (wl.name, placement)
+        loops = [(c, o, m, h) for c, (o, m, h) in zip(cycles.tolist(),
+                                                      counts.tolist())]
+        assert loops == want, (wl.name, placement)
+    return fam
+
+
+def _smoke_odd_suite():
+    """The three odd geometries of chip_smoke.py: 3/5 SMs, 3/5/7
+    controllers, 3/5/6-way L1s."""
+    return [rmachines.baseline(16, num_sms=3, num_mem_ctrls=5, l1_ways=3,
+                               l1_size_bytes=64 * 3 * 7),
+            rmachines.sw_plus(num_sms=5, num_mem_ctrls=3, l1_ways=5,
+                              l1_size_bytes=64 * 5 * 11),
+            rmachines.lw_plus(num_sms=3, num_mem_ctrls=7, l1_ways=6,
+                              l1_size_bytes=64 * 6 * 13)]
+
+
+def _sixteen_sm_suite():
+    """The paper's unscaled machine: 16 SMs (196 KB of L1 state alone)."""
+    return [rmachines.baseline(32, num_sms=16), rmachines.sw_plus(num_sms=16)]
+
+
+def _wide_way_suite():
+    """L1s of more than 32 ways: the searches loop over groups of 32."""
+    return [rmachines.baseline(8, l1_ways=40, l1_size_bytes=64 * 40 * 3),
+            rmachines.sw_plus(l1_ways=72, l1_size_bytes=64 * 72 * 2),
+            rmachines.lw_plus(l1_ways=33, l1_size_bytes=64 * 33 * 5)]
+
+
+def test_cuda_source_host_build_matches_native(host_lib):
     families = [(get_workload(b, n_threads=N_THREADS),
                  list(rmachines.paper_suite().values()))
                 for b in GOLDEN_BENCHES]
     families.append((get_workload("MTM", n_threads=256), _odd_suite()))
     for wl, cfgs in families:
-        ref, port = _family_pairs(wl, cfgs)
-        fam = _cuda.marshal(
-            [(_cuda.stream_cols(s), c) for s, c in port], device="cpu")
-        prepped, cycles, counts = _host_family(lib, fam)
-        for got, want in zip(prepped, _cuda.prep_ref(fam.up, fam.fp,
-                                                     fam.blocks,
-                                                     fam.nbytes)):
-            assert torch.equal(got, want), wl.name
-        loops = [(c, o, m, h) for c, (o, m, h) in zip(cycles.tolist(),
-                                                      counts.tolist())]
-        assert loops == _native_loops(ref), wl.name
+        _check_host_build(host_lib, wl, cfgs)
+
+
+@pytest.mark.parametrize("bench", BENCHMARKS)
+def test_host_build_matches_native_on_paper_grid_seed0(host_lib, bench):
+    """The main path's seed-0 family at the default sizes."""
+    _check_host_build(host_lib, get_workload(bench, seed=0),
+                      list(rmachines.paper_suite().values()))
+
+
+@pytest.mark.parametrize("suite", [_smoke_odd_suite, _sixteen_sm_suite,
+                                   _wide_way_suite],
+                         ids=["odd", "16sm", "wide_ways"])
+@pytest.mark.parametrize("bench", ["BFS", "MTM", "NW"])
+def test_host_build_matches_native_on_other_geometries(host_lib, bench,
+                                                       suite):
+    _check_host_build(host_lib, get_workload(bench, n_threads=256), suite())
+
+
+def _first_min_pops(ready, after):
+    """What the pops must give: heapq's (time, warp) order, by a plain
+    scan for the first minimum."""
+    ready = list(ready)
+    order = []
+    for t_next in after:
+        w = -1
+        t = float("inf")
+        for j, r in enumerate(ready):
+            if r < t:
+                t, w = r, j
+        order.append(w)
+        if w < 0:
+            break
+        ready[w] = t_next
+    return order
+
+
+@pytest.mark.parametrize("case", ["ties", "inf", "one_lane", "many_warps"])
+def test_host_pop_keeps_first_minimum_on_ties(host_lib, case):
+    inf = float("inf")
+    rng = np.random.default_rng(3)
+    if case == "ties":       # equal times across lanes and within a lane
+        ready = [5.0] * 70 + [4.0, 5.0, 4.0]
+        after = [4.0, 5.0, 4.0] * 30 + [3.0] * 10
+    elif case == "inf":      # finished warps, then every warp inf
+        ready = [inf, 2.0, inf, 2.0, inf] * 9
+        after = [inf] * 19 + [2.0] + [inf] * 30
+    elif case == "one_lane":  # every ready warp in lane 0
+        ready = [1.0 if j % 32 == 0 else inf for j in range(256)]
+        after = [1.0, 1.0, 0.5] * 20
+    else:
+        ready = list(rng.integers(0, 6, 256).astype(np.float64))
+        after = list(rng.integers(0, 8, 2000).astype(np.float64))
+        after[::7] = [inf] * len(after[::7])
+    want = _first_min_pops(ready, after)
+    r = np.array(ready, dtype=np.float64)
+    a = np.array(after, dtype=np.float64)
+    order = np.full(len(after), -9, dtype=np.int64)
+    n = host_lib.ws_host_pops(r.ctypes.data, len(r), a.ctypes.data, len(a),
+                              order.ctypes.data)
+    assert order[:n].tolist() == want
+
+
+@pytest.mark.parametrize("ways", [1, 3, 8, 32, 33, 40, 72])
+def test_host_find_way_and_victim_on_crafted_sets(host_lib, ways):
+    rng = np.random.default_rng(ways)
+
+    def find(tags, s, fills=None, t=0.0):
+        """(way, first empty way, whether the way's fill is <= t)."""
+        tags = np.ascontiguousarray(tags, dtype=np.int32)
+        fills = np.ascontiguousarray(
+            np.zeros(ways) if fills is None else fills, dtype=np.float64)
+        empty = np.zeros(1, dtype=np.int32)
+        fresh = np.zeros(1, dtype=np.bool_)
+        way = host_lib.ws_host_find_way(tags.ctypes.data, fills.ctypes.data,
+                                        ways, s, t, empty.ctypes.data,
+                                        fresh.ctypes.data)
+        return way, int(empty[0]), bool(fresh[0])
+
+    def victim(ticks):
+        ticks = np.ascontiguousarray(ticks, dtype=np.int32)
+        return host_lib.ws_host_victim(ticks.ctypes.data, ways)
+
+    def first(xs, x):
+        return next((i for i, v in enumerate(xs) if v == x), -1)
+
+    # A slot held twice: the first way wins; empty ways before and after.
+    tags = rng.permutation(np.arange(100, 100 + ways))
+    tags[ways // 2] = tags[-1] = 7
+    tags[ways // 3] = -1
+    way, empty, _ = find(tags, 7)
+    assert way == first(list(tags), 7)
+    # The hit way's fill time against t, equal times included; the other
+    # copy of the slot does not count.
+    if way >= 0:
+        fills = np.full(ways, 50.0)
+        fills[way] = 40.0
+        assert find(tags, 7, fills, 40.0)[2]
+        assert not find(tags, 7, fills, 39.5)[2]
+    if 0 <= way < ways - 1:
+        fills[way], fills[-1] = 60.0, 0.0
+        assert not find(tags, 7, fills, 40.0)[2]
+    # A miss reports the first empty way, or -1 in a full set.
+    way, empty, fresh = find(tags, 5)
+    assert way == -1 and empty == first(list(tags), -1) and not fresh
+    full = np.arange(200, 200 + ways)
+    assert find(full, 5) == (-1, -1, False)
+    # Equal ticks: the lowest way among the least.
+    ticks = rng.integers(10, 20, ways)
+    for lo in sorted({ways - 1, ways // 2, min(33, ways - 1)}, reverse=True):
+        ticks[lo] = 3
+    assert victim(ticks) == first(list(ticks), 3)
+    assert victim(np.full(ways, 9)) == 0
+    ticks = np.arange(ways, 0, -1)
+    assert victim(ticks) == ways - 1
+
+
+def test_placement_is_global_where_state_overflows_shared_memory():
+    """MTM's SW+ unit (a 17,152-slot outstanding table) and the 16-SM SW+
+    machine do not fit one block's shared memory; the rest of the paper
+    grid does."""
+    suite = rmachines.paper_suite()
+
+    def fam(bench, cfgs):
+        _ref, port = _family_pairs(get_workload(bench, seed=0), cfgs)
+        return _cuda.marshal([(_cuda.stream_cols(s), c) for s, c in port],
+                             device="cpu")
+
+    mtm = fam("MTM", list(suite.values()))
+    assert mtm.state_bytes > _cuda.SMEM_LIMIT
+    assert _cuda.placement(mtm) == "global"
+    no_sw = fam("MTM", [c for name, c in suite.items() if name != "SW+"])
+    assert _cuda.placement(no_sw) == "shared"
+    assert _cuda.placement(fam("GAS", list(suite.values()))) == "shared"
+    assert _cuda.placement(fam("BFS", _sixteen_sm_suite())) == "global"
+    # The sizes are the layout's: the small part padded to even, the big
+    # one after it.
+    one = fam("BFS", [suite["ws8"]])
+    p = dict(zip(_cuda.UP_COLS, one.up[0].tolist()))
+    lines = p["n_sms"] * p["n_sets"] * p["ways"]
+    small = 5 * p["n_warps"] + p["n_sms"] + p["nctrl"] + -(-p["n_sms"] // 2)
+    small += small % 2
+    assert p["big_off"] - p["small_off"] == small
+    assert one.state_bytes == 8 * (small + 2 * lines)
 
 
 # ------------------------------------------------ (e) the slice end to end
@@ -512,6 +704,36 @@ def test_kernels_match_plain_versions_on_card(card, bench):
     assert torch.equal(counts.cpu(), want_n)
     assert {k: _cuda.launch_count(k) - before[k] for k in _cuda.KERNELS} \
         == {k: 1 for k in _cuda.KERNELS}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("placement", _cuda.PLACEMENTS)
+def test_k2_placements_match_plain_versions_on_card(card, placement):
+    """Each placement of K2's state, bit for bit against the plain version,
+    on the paper suite beside L1s of more than 32 ways (which fits shared
+    memory whole) and the 16-SM machine (which does not): once as the
+    wrapper picks it, once named."""
+    _ref, port = _family_pairs(get_workload("MTM", n_threads=256),
+                               list(rmachines.paper_suite().values())
+                               + _wide_way_suite())
+    _ref16, port16 = _family_pairs(get_workload("BFS", n_threads=256),
+                                   _sixteen_sm_suite())
+    for pairs in (port, port16):
+        units = [(_cuda.stream_cols(s), c) for s, c in pairs]
+        fam = _cuda.marshal(units, device=card)
+        if placement == "shared" and fam.state_bytes > _cuda.SMEM_LIMIT:
+            continue
+        cpu = _cuda.marshal(units, device="cpu")
+        want_c, want_n = _cuda.simulate_family_ref(cpu, *_cuda.prep(cpu))
+        picked = _cuda.placement(fam)
+        for where in {picked, placement}:
+            before = _cuda.route_count("ws_family_kernel", where)
+            cycles, counts = _cuda.simulate_family(fam, *_cuda.prep(fam),
+                                                   where=where)
+            torch.cuda.synchronize()
+            assert _cuda.route_count("ws_family_kernel", where) == before + 1
+            assert torch.equal(cycles.cpu(), want_c), (where, picked)
+            assert torch.equal(counts.cpu(), want_n), (where, picked)
 
 
 @pytest.mark.gpu
