@@ -5,13 +5,15 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every kernel from the ``csrc`` sources in the checkout, one
-   ``nvcc`` per source, all started together: the family kernels (K1,
-   K2) and the LM kernels (K3 ``gather_rows_kernel``, K4 ``gmm_kernel``,
-   K5 ``flash_attention_kernel``, K6 ``ssd_scan_kernel``), and prints
+   ``nvcc`` per source, all started together: the family kernels (K2
+   with K1 folded in, and K1's check entry) and the LM kernels (K3
+   ``gather_rows_kernel``, K4 ``gmm_kernel``, K5
+   ``flash_attention_kernel``, K6 ``ssd_scan_kernel``), and prints
    each one's ``ptxas -v`` report (registers, shared memory, spills).
-3. Holds K1 (``ws_prep_kernel``) against ``prep_ref`` on the same card
-   tensors, and K2 (``ws_family_kernel``) against ``simulate_family_ref``
-   run on the host CPU, on every one of the warp-size study's 45 trace
+3. Holds K1's code alone (``ws_prep_kernel``, the check entry) against
+   ``prep_ref`` on the same card tensors, and K2 (``ws_family_kernel``,
+   which preps the blocks it stages) against ``simulate_family_ref`` run
+   on the host CPU, on every one of the warp-size study's 45 trace
    families (the paper grid, seeds 0-2, default sizes): exact equality
    per unit.
 4. Holds K2 against ``simulate_family_ref`` once more on the 15 benchmarks
@@ -24,8 +26,10 @@
    in these checks and the main path.
 5. Drives the study's path, ``Session(device="cuda").run(Study(seeds=(0,
    1, 2), engine="cuda"))`` (270 cells), with every launch count set to 0
-   just before and read just after, and holds every record bit for bit
-   against the reference grid file
+   just before and read just after (45 ``ws_family_kernel`` launches, one
+   a family, and no ``ws_prep_kernel`` launch, ``prep`` or ``prep_ref``
+   call), and holds every record bit for bit against the reference grid
+   file
    ``src/repro_torch/core/warpsim/data/paper_grid_seeds012.json``. A
    second run of the same study under torch.profiler gives that run's
    wall time, device busy time and idle share.
@@ -33,7 +37,8 @@
 7. Times each family kernel per seed-0 family (warm-up first) by
    torch.profiler's device time, which is the JSON ``ms``, and prints
    CUDA events over back-to-back wrapper calls (launch overhead included)
-   as a column of its own, beside the plain version and the bound; for
+   as a column of its own, beside the plain version and the bound: K2's
+   one launch a family, and K1's check entry (off the study's path); for
    K2 also its placement, the longest unit's op count (its steps) and the
    device time per step.
 8. Holds K3 (exactly) and K4 (rtol 2e-5 / 2e-2, atol 8 x rtol, float32 /
@@ -101,6 +106,7 @@ no result, without a CUDA device, outside a checkout, or on any mismatch.
 """
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -214,22 +220,25 @@ def family_units(warpsim, bench, n_threads, seed, cfgs):
 
 def k1_bytes_ops(fam):
     n = fam.blocks.numel()
-    # blocks + nbytes in, ctrl + si + ssvc out; a divide and a multiply.
+    # K1's check entry: blocks + nbytes in, ctrl + si + ssvc out; a divide
+    # and a multiply.
     tables = 8 * (fam.up.numel() + fam.fp.numel())
     return 16 * n + 24 * n + tables, 2 * n
 
 
 def k2_bytes_ops(fam):
-    n_blk = fam.blocks.numel()
     n_ops = fam.issue.numel()
     n_warps = fam.next0.numel()
     tables = 8 * (fam.up.numel() + fam.fp.numel())
-    # next0/end per warp; issue/kind/blk_off/blk_len per op; slot/ctrl/si/
-    # ssvc per block; cycles + 3 counts out per unit. About three double
-    # operations per op and four per block.
-    byts = (tables + 16 * n_warps + 25 * n_ops + 32 * n_blk
+    n_load = int(fam.blk_len[fam.kind == 1].sum())
+    n_store = int(fam.blk_len[fam.kind == 2].sum())
+    # next0/end per warp; issue/kind/blk_off/blk_len per op; a block's id and
+    # its slot (load) or nbytes (store) per block (K1 folded in); cycles + 3
+    # counts out per unit. About three double operations per op, four per
+    # block, and the occupancy's divide and multiply per store block.
+    byts = (tables + 16 * n_warps + 25 * n_ops + 16 * (n_load + n_store)
             + 32 * fam.n_units)
-    return byts, 3 * n_ops + 4 * n_blk
+    return byts, 3 * n_ops + 4 * (n_load + n_store) + 2 * n_store
 
 
 def bound_ms(byts, ops, peak_ops=PEAK_OPS_PER_S):
@@ -357,11 +366,12 @@ def profiled_run(torch, fn):
 
 
 def check_families(warpsim, fams, err, where=None):
-    """Hold K1 against prep_ref (on the card) and K2 against
-    simulate_family_ref (on the host CPU) on each ``(units, family)`` of
-    `fams`, exactly, K2 in the placement `where` (None: as the wrapper
-    picks it); folds the largest difference into `err`. Returns the
-    host-clock ms of simulate_family_ref per family."""
+    """Hold K1's check entry against prep_ref (on the card) and K2, which
+    preps the blocks itself, against simulate_family_ref (on the host CPU)
+    on each ``(units, family)`` of `fams`, exactly, K2 in the placement
+    `where` (None: as the wrapper picks it); folds the largest difference
+    into `err`. Returns the host-clock ms of the plain versions (prep_ref,
+    then simulate_family_ref) per family."""
     import torch
     _cuda = warpsim._cuda
     plain_ms = {}
@@ -373,11 +383,10 @@ def check_families(warpsim, fams, err, where=None):
             err["ws_prep_kernel"] = max(err["ws_prep_kernel"], d)
             if not torch.equal(g, w):
                 fail(f"K1 differs from prep_ref on {key} (max {d})")
-        cycles, counts = _cuda.simulate_family(fam, *got, where=where)
+        cycles, counts = _cuda.simulate_family(fam, where=where)
         cpu = _cuda.marshal(units, "cpu")
-        cpu_prep = _cuda.prep_ref(cpu.up, cpu.fp, cpu.blocks, cpu.nbytes)
         t0 = time.perf_counter()
-        w_cyc, w_cnt = _cuda.simulate_family_ref(cpu, *cpu_prep)
+        w_cyc, w_cnt = _cuda.simulate_family(cpu)   # prep_ref, then K2's
         plain_ms[key] = 1e3 * (time.perf_counter() - t0)
         cycles, counts = cycles.cpu(), counts.cpu()
         d = max((cycles - w_cyc).abs().max().item(),
@@ -389,6 +398,27 @@ def check_families(warpsim, fams, err, where=None):
                  f"{[c.name for _, c in units]}: {cycles.tolist()} "
                  f"{counts.tolist()} vs {w_cyc.tolist()} {w_cnt.tolist()}")
     return plain_ms
+
+
+@contextlib.contextmanager
+def counted_calls(module, names):
+    """Within the block, count the calls of `module`'s functions `names`
+    (the dict it yields, by name)."""
+    calls = dict.fromkeys(names, 0)
+    saved = {name: getattr(module, name) for name in names}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return call
+    for name, fn in saved.items():
+        setattr(module, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
 
 
 def event_ms(torch, fn, reps):
@@ -1406,12 +1436,13 @@ def main() -> None:
     with open(GRID_FILE, encoding="utf-8") as fh:
         ref = json.load(fh)["records"]
     study = api.Study(seeds=(0, 1, 2), engine="cuda")
-    _cuda.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = api.Session(device=dev).run(study)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: _cuda.launch_count(k) for k in _cuda.KERNELS}
+    with counted_calls(_cuda, ("prep", "prep_ref")) as prep_calls:
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = api.Session(device=dev).run(study)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: _cuda.launch_count(k) for k in _cuda.KERNELS}
     if len(res.records) != 270 or len(ref) != 270:
         fail(f"{len(res.records)} records, {len(ref)} in the grid file")
     bad = 0
@@ -1431,16 +1462,20 @@ def main() -> None:
         fail(f"{bad} of 270 records differ from the reference grid")
     if res.stats["family_launches"] != 45:
         fail(f"family_launches {res.stats['family_launches']} != 45")
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path never launched: {launches}")
+    # One kernel a family: K2 preps the blocks itself, so the path launches
+    # no K1 and allocates no prepped columns.
+    if launches != {"ws_prep_kernel": 0, "ws_family_kernel": 45} \
+            or any(prep_calls.values()):
+        fail(f"the main path is not one ws_family_kernel launch a family: "
+             f"launches {launches}, calls {prep_calls}")
     path_placed = {r: _cuda.route_count("ws_family_kernel", r)
                    for r in _cuda.PLACEMENTS}
     if min(placed[r] + path_placed[r] for r in _cuda.PLACEMENTS) <= 0:
         fail(f"a placement of K2's state never launched: checks {placed}, "
              f"main path {path_placed}")
     print(f"main path: 270 records == reference grid (bit for bit); "
-          f"stats {res.stats}; launches {launches}; K2 placements "
-          f"{path_placed} (checks before it: {placed})")
+          f"stats {res.stats}; launches {launches}; calls {prep_calls}; K2 "
+          f"placements {path_placed} (checks before it: {placed})")
     print(f"main path wall: {wall:.3f} s for 270 cells "
           f"(host stages + 45 family launches) [{card}]")
 
@@ -1463,7 +1498,8 @@ def main() -> None:
     # ---- timing per family (seed 0) ---------------------------------------
     stamp("K1/K2 timing per family")
     rows = {k: [] for k in _cuda.KERNELS}
-    print(f"per-family times, ms per launch [{card}]:")
+    print(f"per-family times, ms per launch; K2 is the study's one launch "
+          f"a family, K1 its check entry, off the path [{card}]:")
     print(f"  {'bench':5s} {'units':>5s} {'warps':>6s} {'ops':>7s} "
           f"{'blocks':>7s} | {'K1 dev':>8s} {'K1 ev':>8s} {'plain':>8s} "
           f"{'bound':>8s} | {'K2 dev':>8s} {'K2 ev':>8s} {'plain':>8s} "
@@ -1471,8 +1507,8 @@ def main() -> None:
     for bench in BENCHMARKS:
         units, fam = fams[(bench, 0)]
         steps = max(len(st.issue) for st, _cfg in units)
-        ctrl, si, ssvc = _cuda.prep(fam)          # warm-up
-        _cuda.simulate_family(fam, ctrl, si, ssvc)
+        _cuda.prep(fam)                           # warm-up
+        _cuda.simulate_family(fam)
         torch.cuda.synchronize()
 
         def k1():
@@ -1482,7 +1518,7 @@ def main() -> None:
             _cuda.prep_ref(fam.up, fam.fp, fam.blocks, fam.nbytes)
 
         def k2():
-            _cuda.simulate_family(fam, ctrl, si, ssvc)
+            _cuda.simulate_family(fam)
 
         k1_ev = event_ms(torch, k1, 20)
         k2_ev = event_ms(torch, k2, 3)
@@ -1508,8 +1544,9 @@ def main() -> None:
           "means); ev: CUDA events over back-to-back wrapper calls (20 for "
           "K1, 3 for K2), launch overhead included, not used in the JSON; "
           "K1 plain: prep_ref on the card, CUDA events; K2 plain: "
-          "simulate_family_ref on the host CPU, host clock; bound: bytes "
-          "read once and written once over 3.35 TB/s; place: K2's "
+          "prep_ref then simulate_family_ref on the host CPU, host clock; "
+          "bound: bytes read once and written once over 3.35 TB/s; place: "
+          "K2's "
           "placement of the state; steps: ops of the family's longest unit "
           "(one scheduling step each); ns/step: K2 dev over steps")
     for name, r in rows.items():

@@ -1,27 +1,29 @@
-"""The trace-family launch on the card: K1 + K2 in CUDA C++ for Hopper.
+"""The trace-family launch on the card: K2, with K1 folded in, in CUDA C++.
 
-Counterpart of the reference's Pallas device program. One launch pair
-simulates a whole *trace family*: every (expansion key x machine variant)
-unit derived from one ThreadTrace. The host marshals each unit's
-:class:`WarpStream` columns plus the machine's scalars into concatenated
-tensors (:func:`marshal`), then
+Counterpart of the reference's Pallas device program. One launch of
+``ws_family_kernel`` simulates a whole *trace family*: every (expansion key
+x machine variant) unit derived from one ThreadTrace. The host marshals
+each unit's :class:`WarpStream` columns plus the machine's scalars into
+concatenated tensors (:func:`marshal`), and the kernel (K2) runs the
+scheduling recurrence, one warp per unit, and returns ``(raw_cycles,
+offchip, merged, l1_hits)`` per unit. As its lanes stage an op's blocks
+they prep them (K1: memory controller, L1 set, store occupancy), so the
+study launches nothing else. K2 has two placements of the units' state,
+picked per launch by :func:`placement`: ``"shared"`` (each unit's state in
+its block's shared memory) when the largest unit's state fits
+:data:`SMEM_LIMIT`, else ``"global"`` (every unit's state in global
+scratch).
 
-* ``ws_prep_kernel`` (K1) maps every block of every unit to its memory
-  controller, L1 set and store occupancy, and
-* ``ws_family_kernel`` (K2) runs the scheduling recurrence, one warp per
-  unit, and returns ``(raw_cycles, offchip, merged, l1_hits)`` per unit.
-  It has two placements of the units' state, picked per launch by
-  :func:`placement`: ``"shared"`` (each unit's state in its block's shared
-  memory) when the largest unit's state fits :data:`SMEM_LIMIT`, else
-  ``"global"`` (every unit's state in global scratch).
-
-Both live in ``csrc/warpsim_family.cu`` over the ``__host__ __device__``
-code of ``csrc/warpsim_family.cuh``. They are built with ``nvcc`` at first
-use into ``<repo>/build/repro_torch/`` (keyed by a hash of the sources and
-flags) and bound through ctypes. Beside each kernel sits its plain PyTorch
-version (:func:`prep_ref`, :func:`simulate_family_ref`); a wrapper takes
-the plain version only for tensors on the CPU. On a CUDA tensor it launches
-the kernel or raises: there is no fallback.
+``ws_prep_kernel`` runs K1's code alone over every block (:func:`prep`):
+the entry that holds it against :func:`prep_ref` on the card, off the
+study's path. Both kernels live in ``csrc/warpsim_family.cu`` over the
+``__host__ __device__`` code of ``csrc/warpsim_family.cuh``. They are
+built with ``nvcc`` at first use into ``<repo>/build/repro_torch/``
+(keyed by a hash of the sources and flags) and bound through ctypes.
+Beside each kernel sits its plain PyTorch version (:func:`prep_ref`,
+:func:`simulate_family_ref`); a wrapper takes the plain version only for
+tensors on the CPU. On a CUDA tensor it launches the kernel or raises:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ _SOURCES = ("warpsim_family.cu", "warpsim_family.cuh")
 # WS_* enums in csrc/warpsim_family.cuh.
 UP_COLS = ("warp_off", "op_off", "blk_off", "n_warps", "n_blocks", "n_sms",
            "nctrl", "n_sets", "ways", "ideal", "n_slots", "small_off",
-           "big_off")
+           "big_off", "ctrl_mul", "ctrl_shift", "sets_mul", "sets_shift")
 FP_COLS = ("hit_lat", "depth", "dram_lat", "svc_unit")
 _UP = {name: i for i, name in enumerate(UP_COLS)}
 _FP = {name: i for i, name in enumerate(FP_COLS)}
@@ -57,7 +59,8 @@ KERNELS = ("ws_prep_kernel", "ws_family_kernel")
 #: Where K2 keeps the units' state: the routes of ``ws_family_kernel``.
 PLACEMENTS = ("shared", "global")
 #: Dynamic shared memory one block of K2 may use on an H100: the 227 KB a
-#: block may have, less K2's static stage of 32 blocks' columns (1 KB).
+#: block may have, less 1 KB kept for K2's static stage of 32 blocks'
+#: columns (768 bytes).
 SMEM_LIMIT = 232448 - 1024
 
 # Launches per kernel, counted by the wrappers where they launch, and K2's
@@ -137,7 +140,7 @@ def _lib() -> ctypes.CDLL:
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.ws_prep_launch.argtypes = [ptr] * 7 + [i64, i64, ptr]
         lib.ws_prep_launch.restype = ctypes.c_int
-        lib.ws_family_launch.argtypes = [ptr] * 15 + [i64, i64, ptr]
+        lib.ws_family_launch.argtypes = [ptr] * 14 + [i64, i64, ptr]
         lib.ws_family_launch.restype = ctypes.c_int
         lib.ws_error_string.argtypes = [ctypes.c_int]
         lib.ws_error_string.restype = ctypes.c_char_p
@@ -216,6 +219,18 @@ def machine_scalars(cfg: MachineConfig) -> dict:
         svc_unit=float(cfg.dram_cycles_per_transaction))
 
 
+def divisor_constants(d: int) -> Tuple[int, int]:
+    """``(m, l)`` for ``ws_mod`` in ``csrc/warpsim_family.cuh``: ``l =
+    ceil(log2 d)``, ``m = ceil(2**(63 + l) / d)``, so that ``b % d`` is
+    ``b - ((2 b * m) >> (64 + l)) * d`` for every ``0 <= b < 2**63``.
+    ``m`` is returned as the int64 of its 64 bits (``m < 2**64``)."""
+    if not 1 <= d < 2 ** 31:
+        raise ValueError(f"divisor {d} outside [1, 2**31)")
+    l = (d - 1).bit_length()
+    m = (2 ** (63 + l) + d - 1) // d
+    return (m - 2 ** 64 if m >= 2 ** 63 else m), l
+
+
 @dataclasses.dataclass
 class Family:
     """One family launch's inputs, on one device.
@@ -287,7 +302,8 @@ def marshal(units: Sequence[Tuple[StreamCols, MachineConfig]],
         lines = m["n_sms"] * m["n_sets"] * m["ways"]
         # K2 indexes within a unit in int32 and keeps tags (slot ids) and
         # LRU ticks (up to two a block) in int32.
-        if max(nw, n_ops, 2 * n_blk, m["n_sms"] * n_slots, lines) >= 2 ** 31:
+        if max(nw, n_ops, 2 * n_blk, m["n_sms"] * n_slots, lines,
+               m["nctrl"]) >= 2 ** 31:
             raise ValueError(f"unit {u} is too large for one family launch: "
                              f"{nw} warps, {n_ops} ops, {n_blk} blocks, "
                              f"{n_slots} slots, {lines} L1 lines")
@@ -297,9 +313,13 @@ def marshal(units: Sequence[Tuple[StreamCols, MachineConfig]],
         small = 5 * nw + m["n_sms"] + m["nctrl"] + (m["n_sms"] + 1) // 2
         small += small % 2
         big = 2 * lines + (m["n_sms"] * n_slots if m["ideal"] else 0)
+        (ctrl_mul, ctrl_shift), (sets_mul, sets_shift) = (
+            divisor_constants(m["nctrl"]), divisor_constants(m["n_sets"]))
         row = dict(warp_off=warp_off, op_off=op_off, blk_off=blk_off,
                    n_warps=nw, n_blocks=n_blk, n_slots=n_slots,
                    small_off=scratch, big_off=scratch + small,
+                   ctrl_mul=ctrl_mul, ctrl_shift=ctrl_shift,
+                   sets_mul=sets_mul, sets_shift=sets_shift,
                    **{k: m[k] for k in ("n_sms", "nctrl", "n_sets", "ways",
                                         "ideal")})
         up[u] = [row[k] for k in UP_COLS]
@@ -335,8 +355,13 @@ def marshal(units: Sequence[Tuple[StreamCols, MachineConfig]],
 
 
 def prep(fam: Family) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per block of every unit: ``(ctrl, si, ssvc)``. Launches K1 on a CUDA
-    family; runs :func:`prep_ref` on a CPU one."""
+    """Per block of every unit: ``(ctrl, si, ssvc)``. Launches K1 alone
+    (``ws_prep_kernel``) on a CUDA family; runs :func:`prep_ref` on a CPU
+    one.
+
+    Not on the study's path: K2 runs the same code (``ws_prep_block``) on
+    the blocks it stages. This is the entry that holds that code against
+    :func:`prep_ref` on the card."""
     if fam.device.type == "cpu":
         return prep_ref(fam.up, fam.fp, fam.blocks, fam.nbytes)
     _check_family(fam)
@@ -384,22 +409,18 @@ def placement(fam: Family) -> str:
     return "shared" if fam.state_bytes <= SMEM_LIMIT else "global"
 
 
-def simulate_family(fam: Family, ctrl: torch.Tensor, si: torch.Tensor,
-                    ssvc: torch.Tensor, where: Optional[str] = None
+def simulate_family(fam: Family, where: Optional[str] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(raw_cycles float64[U], counts int64[U, 3])`` with counts
-    ``(offchip, merged, l1_hits)``. Launches K2 on a CUDA family, in the
-    placement :func:`placement` picks (`where`, when given, names another
-    that the state fits, as the tests do to hold each against the plain
-    version); runs :func:`simulate_family_ref` on a CPU one."""
+    ``(offchip, merged, l1_hits)``. Launches K2, which preps the blocks
+    itself, once on a CUDA family, in the placement :func:`placement` picks
+    (`where`, when given, names another that the state fits, as the tests
+    do to hold each against the plain version); runs :func:`prep_ref` then
+    :func:`simulate_family_ref` on a CPU one."""
     if fam.device.type == "cpu":
-        return simulate_family_ref(fam, ctrl, si, ssvc)
+        return simulate_family_ref(
+            fam, *prep_ref(fam.up, fam.fp, fam.blocks, fam.nbytes))
     _check_family(fam)
-    n = fam.blocks.shape[0]
-    for name, x, dtype in (("ctrl", ctrl, torch.int64),
-                           ("si", si, torch.int64),
-                           ("ssvc", ssvc, torch.float64)):
-        _check_tensor(name, x, dtype, fam.device, (n,))
     dev = fam.device
     if where is None:
         where = placement(fam)
@@ -419,8 +440,8 @@ def simulate_family(fam: Family, ctrl: torch.Tensor, si: torch.Tensor,
             fam.up.data_ptr(), fam.fp.data_ptr(), fam.next0.data_ptr(),
             fam.end.data_ptr(), fam.issue.data_ptr(), fam.kind.data_ptr(),
             fam.blk_off.data_ptr(), fam.blk_len.data_ptr(),
-            fam.slot.data_ptr(), ctrl.data_ptr(), si.data_ptr(),
-            ssvc.data_ptr(), scratch.data_ptr(), cycles.data_ptr(),
+            fam.blocks.data_ptr(), fam.nbytes.data_ptr(),
+            fam.slot.data_ptr(), scratch.data_ptr(), cycles.data_ptr(),
             counts.data_ptr(), fam.n_units, smem,
             torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(lib, "ws_family_kernel", code)
@@ -452,7 +473,7 @@ def simulate_family_ref(fam: Family, ctrl: torch.Tensor, si: torch.Tensor,
     counts: List[List[int]] = []
     for p, f in zip(up, fp):
         (wo, oo, bo, nw, _nb, n_sms, nctrl, n_sets, ways, ideal, n_slots,
-         _fo, _io) = p
+         *_offsets_and_divisors) = p
         hit_lat, depth, dram_lat, svc_unit = f
         nxt = next0[wo:wo + nw]
         wend = end[wo:wo + nw]
@@ -559,16 +580,13 @@ def simulate_family_ref(fam: Family, ctrl: torch.Tensor, si: torch.Tensor,
 
 
 def _check_tensor(name: str, x: torch.Tensor, dtype: torch.dtype,
-                  device: torch.device, shape=None) -> None:
+                  device: torch.device) -> None:
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != dtype:
         raise ValueError(f"{name} is {x.dtype}, expected {dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
-    if shape is not None and tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                         f"{tuple(shape)}")
 
 
 def _check_family(fam: Family) -> None:
@@ -588,27 +606,18 @@ def _check_family(fam: Family) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _simulate(fam: Family, engine: str
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 then K2 on `fam`: the kernels for ``engine="cuda"``, their plain
-    versions for ``engine="torch"`` (`engine` already resolved)."""
-    if engine == "cuda":
-        return simulate_family(fam, *prep(fam))
-    return simulate_family_ref(
-        fam, *prep_ref(fam.up, fam.fp, fam.blocks, fam.nbytes))
-
-
 def run_family(pairs, device="cuda", engine: str = "auto"
                ) -> List[Tuple[float, int, int, int]]:
-    """Simulate a trace family in ONE launch of each kernel.
+    """Simulate a trace family in ONE kernel launch.
 
     ``pairs`` is ``[(WarpStream, MachineConfig), ...]`` — every expansion
     key x machine variant of one ThreadTrace (streams may repeat across
     variants that share an expansion). Returns ``(raw_cycles, offchip,
-    merged, l1_hits)`` per pair, in order. `engine` is resolved against
-    `device` by :func:`resolve_engine` and picks kernels or plain versions.
+    merged, l1_hits)`` per pair, in order. `engine` must match `device`
+    (:func:`resolve_engine`): the kernel on a card, the plain versions on
+    the CPU.
     """
-    engine = resolve_engine(engine, device)
+    resolve_engine(engine, device)
     col_cache: dict = {}
     units = []
     for stream, cfg in pairs:
@@ -616,7 +625,7 @@ def run_family(pairs, device="cuda", engine: str = "auto"
         if cols is None:
             cols = col_cache[id(stream)] = stream_cols(stream)
         units.append((cols, cfg))
-    cycles, counts = _simulate(marshal(units, device), engine)
+    cycles, counts = simulate_family(marshal(units, device))
     return [(c, o, m, h) for c, (o, m, h) in zip(cycles.tolist(),
                                                   counts.tolist())]
 
@@ -626,9 +635,9 @@ def run_scheduling_loop(n_warps: int, op_start, issue, kind, blk_off,
                         device="cuda", engine: str = "auto"
                         ) -> Tuple[float, int, int, int]:
     """One stream on one machine: a one-unit family launch."""
-    engine = resolve_engine(engine, device)
+    resolve_engine(engine, device)
     cols = stream_cols(StreamCols(n_warps, op_start, issue, kind, blk_off,
                                   blk_len, blocks, nbytes))
-    cycles, counts = _simulate(marshal([(cols, cfg)], device), engine)
+    cycles, counts = simulate_family(marshal([(cols, cfg)], device))
     o, m, h = counts[0].tolist()
     return float(cycles[0]), o, m, h

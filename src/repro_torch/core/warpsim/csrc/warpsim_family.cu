@@ -1,6 +1,8 @@
-// The trace-family launch on Hopper: K1 (ws_prep_kernel) and K2
-// (ws_family_kernel), with a plain C interface for ctypes. See
-// warpsim_family.cuh for what each replaces and what bounds it.
+// The trace-family launch on Hopper: ws_family_kernel (K2, with K1 folded
+// in: one launch simulates a family) and ws_prep_kernel (K1 alone, the
+// entry that checks K1's code on the card; the study does not launch it),
+// with a plain C interface for ctypes. See warpsim_family.cuh for what each
+// replaces and what bounds it.
 //
 // Build (what _cuda.py runs):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
@@ -13,7 +15,8 @@
 
 #include "warpsim_family.cuh"
 
-// One thread per (unit, block): grid.y is the unit, x strides its blocks.
+// K1 alone, off the study's path: one thread per (unit, block), grid.y the
+// unit, x striding its blocks.
 __global__ void ws_prep_kernel(const int64_t *up, const double *fp,
                                const int64_t *blocks, const int64_t *nbytes,
                                int64_t *ctrl, int64_t *si, double *ssvc) {
@@ -25,9 +28,10 @@ __global__ void ws_prep_kernel(const int64_t *up, const double *fp,
 }
 
 // One warp (a 32-thread block) per unit, so each unit's chain runs on an SM
-// of its own. SHARED: the unit's state lies in dynamic shared memory (the
-// "shared" placement), else at its offsets in the global scratch
-// ("global"). The stage lies in static shared memory in both.
+// of its own; the lanes prep the blocks they stage (K1). SHARED: the unit's
+// state lies in dynamic shared memory (the "shared" placement), else at its
+// offsets in the global scratch ("global"). The stage lies in static shared
+// memory in both.
 template <bool SHARED>
 __global__ void __launch_bounds__(WS_LANES)
 ws_family_kernel(const int64_t *__restrict__ up, const double *__restrict__ fp,
@@ -37,10 +41,9 @@ ws_family_kernel(const int64_t *__restrict__ up, const double *__restrict__ fp,
                  const int8_t *__restrict__ kind,
                  const int64_t *__restrict__ blk_off,
                  const int64_t *__restrict__ blk_len,
-                 const int64_t *__restrict__ slot,
-                 const int64_t *__restrict__ ctrl,
-                 const int64_t *__restrict__ si,
-                 const double *__restrict__ ssvc, int64_t *scratch,
+                 const int64_t *__restrict__ blocks,
+                 const int64_t *__restrict__ nbytes,
+                 const int64_t *__restrict__ slot, int64_t *scratch,
                  double *cycles, int64_t *counts) {
     extern __shared__ __align__(16) int64_t ws_state[];
     __shared__ WsStage stage;
@@ -51,7 +54,7 @@ ws_family_kernel(const int64_t *__restrict__ up, const double *__restrict__ fp,
                           : scratch + p[WS_BIG_OFF];
     WsWarpLanes lanes;
     ws_family_unit(lanes, u, up, fp, next0, end, issue, kind, blk_off,
-                   blk_len, slot, ctrl, si, ssvc, small, big, stage, cycles,
+                   blk_len, blocks, nbytes, slot, small, big, stage, cycles,
                    counts);
 }
 
@@ -79,9 +82,9 @@ extern "C" int ws_family_launch(const void *up, const void *fp,
                                 const void *next0, const void *end,
                                 const void *issue, const void *kind,
                                 const void *blk_off, const void *blk_len,
-                                const void *slot, const void *ctrl,
-                                const void *si, const void *ssvc,
-                                void *scratch, void *cycles, void *counts,
+                                const void *blocks, const void *nbytes,
+                                const void *slot, void *scratch,
+                                void *cycles, void *counts,
                                 int64_t n_units, int64_t smem_bytes,
                                 void *stream) {
     auto kernel = smem_bytes > 0 ? ws_family_kernel<true>
@@ -97,8 +100,8 @@ extern "C" int ws_family_launch(const void *up, const void *fp,
         (const int64_t *)up, (const double *)fp, (const int64_t *)next0,
         (const int64_t *)end, (const int64_t *)issue, (const int8_t *)kind,
         (const int64_t *)blk_off, (const int64_t *)blk_len,
-        (const int64_t *)slot, (const int64_t *)ctrl, (const int64_t *)si,
-        (const double *)ssvc, (int64_t *)scratch, (double *)cycles,
+        (const int64_t *)blocks, (const int64_t *)nbytes,
+        (const int64_t *)slot, (int64_t *)scratch, (double *)cycles,
         (int64_t *)counts);
     return (int)cudaGetLastError();
 }

@@ -3,10 +3,13 @@
 //
 // Replaces the TPU device program src/repro/core/warpsim/_pallas.py:
 //   K1  _get_launch._prep_kernel (pallas_call in _prep, _pallas.py:192-229)
-//       -> ws_prep_block, launched per (unit, block) by ws_prep_kernel;
+//       -> ws_prep_block, folded into K2: the lanes of ws_family_kernel run
+//       it on the blocks they stage. ws_prep_kernel runs it alone, per
+//       (unit, block), as the entry that checks it on the card; the study
+//       never launches it;
 //   K2  _get_launch._simulate_one (lax.while_loop vmapped over units,
 //       _pallas.py:233-407) -> ws_simulate_unit, one warp per unit in
-//       ws_family_kernel.
+//       ws_family_kernel. One launch of it simulates a family.
 //
 // Bit-identity with the reference engines rests on doing the same IEEE-754
 // double operations in the same order: build with --fmad=false (nvcc) or
@@ -33,8 +36,10 @@
 //       line is filled by now, and the first empty way come from ballots;
 //       the LRU victim (least tick, lowest way on ties) from two more
 //       reductions;
-//     - the blocks of the op: the lanes copy up to 32 blocks' columns into
-//       a shared stage at once (cp.async), as soon as the warp is popped;
+//     - the blocks of the op: the lanes copy up to 32 blocks' ids (and a
+//       load's slots or a store's byte counts) into a shared stage at once
+//       (cp.async), as soon as the warp is popped, and each lane preps its
+//       own block (K1) once the copies have landed;
 //   - the state in shared memory where a unit's state fits a block's 227
 //     KB, else in global scratch (the "shared" and "global" placements of
 //     ws_family_kernel, picked per launch by the wrapper);
@@ -47,7 +52,15 @@
 // layout: WsWarpLanes (shuffles, ballots and cp.async, on the card) and
 // WsHostLanes (the same lanes walked one after another, for the CPU tests'
 // g++ build).
-// K1 is a trivially parallel map bound by its bytes.
+// K1 alone is a map bound by its bytes, too little work to pay for a launch
+// of its own, and K2 read its output back. Folded in, the lanes that stage
+// an op's blocks turn each block id into its memory controller and L1 set
+// (b % nctrl, b % n_sets, by a multiply-high: no division on the chain) and
+// a store's byte count into its occupancy, in parallel, before the step
+// reads them. That conversion does lie on the chain, once per 32 blocks of
+// a memory op: prepping each warp's next op a step ahead into its state
+// was faster only where the state lies in shared memory, and slower in
+// global scratch (PERF.md, section 6).
 #pragma once
 
 #include <math.h>
@@ -68,7 +81,7 @@
 enum {
     WS_WARP_OFF = 0,  // first warp of the unit in next0 / end
     WS_OP_OFF,        // first op of the unit in issue / kind / blk_off / blk_len
-    WS_BLK_OFF,       // first block of the unit in blocks / nbytes / slot / ctrl / si / ssvc
+    WS_BLK_OFF,       // first block of the unit in blocks / nbytes / slot
     WS_N_WARPS,
     WS_N_BLOCKS,
     WS_N_SMS,
@@ -79,6 +92,10 @@ enum {
     WS_N_SLOTS,       // unique blocks of the stream: width of the outstanding table
     WS_SMALL_OFF,     // first word of the unit's small state in the global scratch
     WS_BIG_OFF,       // first word of the unit's L1 and SW+ state in the scratch
+    WS_CTRL_MUL,      // multiply-high constant of nctrl (uint64 bits; ws_mod)
+    WS_CTRL_SHIFT,    // ... and its shift
+    WS_SETS_MUL,      // the same for n_sets
+    WS_SETS_SHIFT,
     WS_NI
 };
 
@@ -91,15 +108,50 @@ enum { WS_HIT_LAT = 0, WS_DEPTH, WS_DRAM_LAT, WS_SVC, WS_NF };
 constexpr int WS_LANES = 32;
 constexpr int WS_K = 8;
 
-// K1 for one block: memory controller, L1 set and store occupancy. The
-// occupancy has a minimum 32 B burst and divides before it multiplies,
-// exactly svc * (max(nbytes, 32) / 64.0) as the reference computes it.
-WS_HD inline void ws_prep_block(int64_t block, int64_t nbytes, int64_t nctrl,
-                                int64_t n_sets, double svc, int64_t *ctrl,
+// A divisor d (1 <= d < 2^31) with its multiply-high constants: l =
+// ceil(log2 d) and m = ceil(2^(63+l) / d) (marshal() in _cuda.py). Then
+// 2^(63+l) <= m d <= 2^(63+l) + 2^l, so floor(b / d) = floor(m b / 2^(63+l))
+// for every 0 <= b < 2^63 (Granlund and Montgomery 1994, theorem 4.2), and
+// m < 2^64 (m = 2^63 for a power of two, d = 1 included): the quotient is
+// the high word of the 64-bit product of 2b and m, shifted right by l, with
+// no 65th bit.
+struct WsDiv {
+    int64_t d;
+    uint64_t m;
+    int l;
+};
+
+WS_HD inline WsDiv ws_div(const int64_t *p, int d, int m, int l) {
+    return WsDiv{p[d], (uint64_t)p[m], (int)p[l]};
+}
+
+// b % v.d for 0 <= b < 2^63. The remainder is below 2^31, so it is exact
+// in 32 bits.
+WS_HD inline int64_t ws_mod(int64_t b, WsDiv v) {
+    const uint64_t b2 = (uint64_t)b << 1;
+#ifdef __CUDA_ARCH__
+    const uint64_t hi = __umul64hi(b2, v.m);
+#else
+    const uint64_t hi = (uint64_t)(((unsigned __int128)b2 * v.m) >> 64);
+#endif
+    return (int64_t)(uint32_t)((uint32_t)b - (uint32_t)(hi >> v.l) *
+                                                 (uint32_t)v.d);
+}
+
+// A store's occupancy of its controller: a minimum 32 B burst, divided
+// before it is multiplied, exactly svc * (max(nbytes, 32) / 64.0) as the
+// reference computes it.
+WS_HD inline double ws_store_svc(double svc, int64_t nbytes) {
+    return svc * ((double)(nbytes > 32 ? nbytes : 32) / 64.0);
+}
+
+// K1 for one block: memory controller, L1 set and store occupancy.
+WS_HD inline void ws_prep_block(int64_t block, int64_t nbytes, WsDiv nctrl,
+                                WsDiv n_sets, double svc, int64_t *ctrl,
                                 int64_t *si, double *ssvc) {
-    *ctrl = block % nctrl;
-    *si = block % n_sets;
-    *ssvc = svc * ((double)(nbytes > 32 ? nbytes : 32) / 64.0);
+    *ctrl = ws_mod(block, nctrl);
+    *si = ws_mod(block, n_sets);
+    *ssvc = ws_store_svc(svc, nbytes);
 }
 
 // K1 for block j of unit u of a family (all pointers are family bases).
@@ -109,7 +161,9 @@ WS_HD inline void ws_prep_unit_block(int64_t u, int64_t j, const int64_t *up,
                                      int64_t *si, double *ssvc) {
     const int64_t *p = up + u * WS_NI;
     const int64_t b = p[WS_BLK_OFF] + j;
-    ws_prep_block(blocks[b], nbytes[b], p[WS_NCTRL], p[WS_N_SETS],
+    ws_prep_block(blocks[b], nbytes[b],
+                  ws_div(p, WS_NCTRL, WS_CTRL_MUL, WS_CTRL_SHIFT),
+                  ws_div(p, WS_N_SETS, WS_SETS_MUL, WS_SETS_SHIFT),
                   fp[u * WS_NF + WS_SVC], &ctrl[b], &si[b], &ssvc[b]);
 }
 
@@ -146,10 +200,17 @@ WS_HD inline int64_t ws_small_len(const int64_t *p) {
     return n + (n & 1);
 }
 
-// Up to 32 blocks of the op being issued, fetched by the lanes together.
+// Up to 32 blocks of the op being issued. The lanes fetch them together,
+// then each lane turns its own block, in place, into what the step reads
+// (K1): `block` from the block id into its memory controller, and `word`
+// into a load's L1 set or from a store's byte count into its occupancy.
+union WsWord {
+    int64_t i;
+    double d;
+};
 struct WsStage {
-    int64_t slot[WS_LANES], si[WS_LANES], ctrl[WS_LANES];
-    double ssvc[WS_LANES];
+    int64_t slot[WS_LANES], block[WS_LANES];
+    WsWord word[WS_LANES];
 };
 
 // (t, w) comes before (t2, w2): the least time, the lowest id on ties.
@@ -286,6 +347,7 @@ struct WsWarpLanes {
     }
     // 8 bytes from global memory into the stage, in shared memory, without
     // waiting: the copy overlaps what the step does before fetched().
+    // fetched() waits for this lane's own copies; sync() then shares them.
     template <typename T>
     __device__ void fetch(T *dst, const T *src) const {
         static_assert(sizeof(T) == 8, "the stage holds 8-byte columns");
@@ -296,7 +358,6 @@ struct WsWarpLanes {
     }
     __device__ void fetched() const {
         asm volatile("cp.async.wait_all;\n" ::: "memory");
-        __syncwarp();
     }
 
     // The first minimum of v (warps w0, w0 + 32, ...): a tree of compares,
@@ -425,9 +486,9 @@ WS_HD inline void ws_simulate_unit(
     const int64_t *next0, const int64_t *end,
     const int64_t *issue, const int8_t *kind,
     const int64_t *blk_off, const int64_t *blk_len,
-    const int64_t *slot, const int64_t *ctrl, const int64_t *si,
-    const double *ssvc, int64_t *small, int64_t *big, WsStage &st,
-    double *cycles, int64_t *counts) {
+    const int64_t *blocks, const int64_t *nbytes, const int64_t *slot,
+    int64_t *small, int64_t *big, WsStage &st, double *cycles,
+    int64_t *counts) {
     const int nw = (int)p[WS_N_WARPS], n_sms = (int)p[WS_N_SMS];
     const int nctrl = (int)p[WS_NCTRL], n_sets = (int)p[WS_N_SETS];
     const int ways = (int)p[WS_WAYS], ideal = (int)p[WS_IDEAL];
@@ -436,6 +497,8 @@ WS_HD inline void ws_simulate_unit(
     const double dram_lat = f[WS_DRAM_LAT], svc_unit = f[WS_SVC];
     const double inf = INFINITY;
     const int lines = (int)ws_lines(p);
+    const WsDiv ctrl_div = ws_div(p, WS_NCTRL, WS_CTRL_MUL, WS_CTRL_SHIFT);
+    const WsDiv sets_div = ws_div(p, WS_N_SETS, WS_SETS_MUL, WS_SETS_SHIFT);
 
     WsWarp *warps = (WsWarp *)small;
     double *ready = (double *)(small + 4 * (int64_t)nw);
@@ -490,13 +553,11 @@ WS_HD inline void ws_simulate_unit(
         // The lanes start fetching the op's first 32 blocks at once.
         const int gn0 = kind_i == 0 ? 0 : n_blk < WS_LANES ? n_blk : WS_LANES;
         lanes.each(gn0, [&](int x) {
-            lanes.fetch(&st.ctrl[x], ctrl + o + x);
-            if (kind_i == 1) {
+            lanes.fetch(&st.block[x], blocks + o + x);
+            if (kind_i == 1)
                 lanes.fetch(&st.slot[x], slot + o + x);
-                lanes.fetch(&st.si[x], si + o + x);
-            } else {
-                lanes.fetch(&st.ssvc[x], ssvc + o + x);
-            }
+            else
+                lanes.fetch(&st.word[x].i, nbytes + o + x);
         });
         const int sm = r.sm;
         const int i = r.next;
@@ -524,16 +585,22 @@ WS_HD inline void ws_simulate_unit(
                 if (g > 0) {                      // blocks 32 and on
                     lanes.sync();
                     lanes.each(gn, [&](int x) {
+                        lanes.fetch(&st.block[x], blocks + o + g + x);
                         lanes.fetch(&st.slot[x], slot + o + g + x);
-                        lanes.fetch(&st.si[x], si + o + g + x);
-                        lanes.fetch(&st.ctrl[x], ctrl + o + g + x);
                     });
                 }
+                // K1: each lane preps its own block, the lanes at once.
                 lanes.fetched();
+                lanes.each(gn, [&](int x) {
+                    const int64_t b = st.block[x];
+                    st.block[x] = ws_mod(b, ctrl_div);
+                    st.word[x].i = ws_mod(b, sets_div);
+                });
+                lanes.sync();
                 for (int q = 0; q < gn; q++) {
                     const int s = (int)st.slot[q];
-                    const int row = (set0 + (int)st.si[q]) * ways;
-                    const int c = (int)st.ctrl[q];
+                    const int row = (set0 + (int)st.word[q].i) * ways;
+                    const int c = (int)st.block[q];
                     // What this block reads of the SW+ table and its memory
                     // controller, loaded before the way search: no store of
                     // this iteration comes before their reads below.
@@ -592,15 +659,20 @@ WS_HD inline void ws_simulate_unit(
                 if (g > 0) {
                     lanes.sync();
                     lanes.each(gn, [&](int x) {
-                        lanes.fetch(&st.ctrl[x], ctrl + o + g + x);
-                        lanes.fetch(&st.ssvc[x], ssvc + o + g + x);
+                        lanes.fetch(&st.block[x], blocks + o + g + x);
+                        lanes.fetch(&st.word[x].i, nbytes + o + g + x);
                     });
                 }
                 lanes.fetched();
+                lanes.each(gn, [&](int x) {
+                    st.block[x] = ws_mod(st.block[x], ctrl_div);
+                    st.word[x].d = ws_store_svc(svc_unit, st.word[x].i);
+                });
+                lanes.sync();
                 for (int q = 0; q < gn; q++) {
-                    const int c = (int)st.ctrl[q];
+                    const int c = (int)st.block[q];
                     const double cf = ctrl_free[c];
-                    ctrl_free[c] = (cf > t_acc ? cf : t_acc) + st.ssvc[q];
+                    ctrl_free[c] = (cf > t_acc ? cf : t_acc) + st.word[q].d;
                 }
             }
             offchip += n_blk;
@@ -630,13 +702,13 @@ WS_HD inline void ws_family_unit(
     const int64_t *next0, const int64_t *end,
     const int64_t *issue, const int8_t *kind,
     const int64_t *blk_off, const int64_t *blk_len,
-    const int64_t *slot, const int64_t *ctrl, const int64_t *si,
-    const double *ssvc, int64_t *small, int64_t *big, WsStage &st,
-    double *cycles, int64_t *counts) {
+    const int64_t *blocks, const int64_t *nbytes, const int64_t *slot,
+    int64_t *small, int64_t *big, WsStage &st, double *cycles,
+    int64_t *counts) {
     const int64_t *p = up + u * WS_NI;
     const int64_t wo = p[WS_WARP_OFF], oo = p[WS_OP_OFF], bo = p[WS_BLK_OFF];
     ws_simulate_unit(lanes, p, fp + u * WS_NF, next0 + wo, end + wo,
                      issue + oo, kind + oo, blk_off + oo, blk_len + oo,
-                     slot + bo, ctrl + bo, si + bo, ssvc + bo, small, big, st,
+                     blocks + bo, nbytes + bo, slot + bo, small, big, st,
                      cycles + u, counts + 3 * u);
 }

@@ -10,9 +10,11 @@ reference engine is bit-identical to every other.
 * Plain kernels (``prep_ref`` + ``simulate_family_ref``) equal the
   reference family launch (Pallas, interpreted on the CPU) and the C core.
 * The CUDA source's recurrence, built for the host with g++ (the host
-  form of the warp's searches), equals the C core in both placements of
-  K2's state, on the paper grid's seed-0 families and on odd, 16-SM and
-  wider-than-32-way geometries; the searches alone keep the tie rules.
+  form of the warp's searches, K1 folded into K2's staging), equals the C
+  core in both placements of K2's state, on the paper grid's seed-0
+  families and on odd, 16-SM and wider-than-32-way geometries; K1 alone
+  equals ``prep_ref``; the multiply-high remainder equals Python's ``%``;
+  the searches alone keep the tie rules.
 * The slice end to end: Session/Study records equal the reference's.
 * ``gpu``-marked tests run the kernels against their plain versions on a
   card and skip without one:
@@ -253,8 +255,12 @@ def host_lib(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(so)
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.ws_host_family.argtypes = [ptr] * 18 + [i64]
+    lib.ws_host_family.argtypes = [ptr] * 15 + [i64]
     lib.ws_host_family.restype = ctypes.c_int
+    lib.ws_host_prep.argtypes = [ptr] * 7 + [i64]
+    lib.ws_host_prep.restype = ctypes.c_int
+    lib.ws_host_mod.argtypes = [ptr, i64, i64, ctypes.c_uint64, i64, ptr]
+    lib.ws_host_mod.restype = None
     i32 = ctypes.c_int
     lib.ws_host_pops.argtypes = [ptr, i32, ptr, i64, ptr]
     lib.ws_host_pops.restype = i64
@@ -266,16 +272,24 @@ def host_lib(tmp_path_factory):
     return lib
 
 
-def _host_family(lib, fam, placement):
-    """Run the host build over a CPU family in `placement` (``"global"``:
-    every unit's state in the scratch; ``"shared"``: each unit's state
-    carved from one buffer, as a block carves its shared memory). State
-    starts as garbage, so the recurrence must initialise every piece of
-    state it reads."""
+def _host_prep(lib, fam):
+    """K1 alone over a CPU family, as ``ws_prep_kernel`` runs it."""
     n = fam.blocks.shape[0]
     ctrl = torch.full((n,), -7, dtype=torch.int64)
     si = torch.full((n,), -7, dtype=torch.int64)
     ssvc = torch.full((n,), float("nan"), dtype=torch.float64)
+    assert lib.ws_host_prep(*(t.data_ptr() for t in (
+        fam.up, fam.fp, fam.blocks, fam.nbytes, ctrl, si, ssvc)),
+        fam.n_units) == 0
+    return ctrl, si, ssvc
+
+
+def _host_family(lib, fam, placement):
+    """Run the host build of K2 (K1 folded in) over a CPU family in
+    `placement` (``"global"``: every unit's state in the scratch;
+    ``"shared"``: each unit's state carved from one buffer, as a block
+    carves its shared memory). State starts as garbage, so the recurrence
+    must initialise every piece of state it reads."""
     # 0x7ff8... is a NaN as a double and a large negative-free int.
     scratch = torch.full((max(fam.scratch_len, 1),), 0x7FF8DEAD7FF8DEAD,
                          dtype=torch.int64)
@@ -285,26 +299,28 @@ def _host_family(lib, fam, placement):
     counts = torch.empty((fam.n_units, 3), dtype=torch.int64)
     rc = lib.ws_host_family(*(t.data_ptr() for t in (
         fam.up, fam.fp, fam.next0, fam.end, fam.issue, fam.kind,
-        fam.blk_off, fam.blk_len, fam.blocks, fam.nbytes, fam.slot, ctrl,
-        si, ssvc, scratch)),
+        fam.blk_off, fam.blk_len, fam.blocks, fam.nbytes, fam.slot,
+        scratch)),
         shared.data_ptr() if placement == "shared" else None,
         cycles.data_ptr(), counts.data_ptr(), fam.n_units)
     assert rc == 0
-    return (ctrl, si, ssvc), cycles, counts
+    return cycles, counts
 
 
 def _check_host_build(lib, wl, cfgs):
     """The host build equals the C core on one family, in both
-    placements; returns the family (marshalled on the CPU)."""
+    placements, and its K1 alone equals prep_ref; returns the family
+    (marshalled on the CPU)."""
     ref, port = _family_pairs(wl, cfgs)
     fam = _cuda.marshal([(_cuda.stream_cols(s), c) for s, c in port],
                         device="cpu")
     want = _native_loops(ref)
+    for got, exp in zip(_host_prep(lib, fam),
+                        _cuda.prep_ref(fam.up, fam.fp, fam.blocks,
+                                       fam.nbytes)):
+        assert torch.equal(got, exp), wl.name
     for placement in _cuda.PLACEMENTS:
-        prepped, cycles, counts = _host_family(lib, fam, placement)
-        for got, exp in zip(prepped, _cuda.prep_ref(fam.up, fam.fp,
-                                                    fam.blocks, fam.nbytes)):
-            assert torch.equal(got, exp), (wl.name, placement)
+        cycles, counts = _host_family(lib, fam, placement)
         loops = [(c, o, m, h) for c, (o, m, h) in zip(cycles.tolist(),
                                                       counts.tolist())]
         assert loops == want, (wl.name, placement)
@@ -332,6 +348,65 @@ def _wide_way_suite():
     return [rmachines.baseline(8, l1_ways=40, l1_size_bytes=64 * 40 * 3),
             rmachines.sw_plus(l1_ways=72, l1_size_bytes=64 * 72 * 2),
             rmachines.lw_plus(l1_ways=33, l1_size_bytes=64 * 33 * 5)]
+
+
+def _divisor_constants(d):
+    """``(m, l)`` of the multiply-high remainder, computed here apart
+    from ``_cuda.divisor_constants``: the least l with 2**l >= d, and m =
+    ceil(2**(63 + l) / d)."""
+    l = 0
+    while (1 << l) < d:
+        l += 1
+    q, r = divmod(1 << (63 + l), d)
+    return q + (r != 0), l
+
+
+_DIVISORS = [1, 2, 3, 6, 7, 64, 96, 97, 1024, 2 ** 31 - 1]
+
+
+@pytest.mark.parametrize("d", _DIVISORS)
+def test_host_mod_matches_python_mod(host_lib, d):
+    """``ws_mod`` (the host form of the card's multiply-high) equals
+    Python's ``%`` over the whole range of non-negative int64 block ids,
+    and its constants need no 65th bit: m < 2**64 and m d lies within
+    2**l above 2**(63 + l), the condition under which the quotient is
+    exact for every dividend below 2**63."""
+    m, l = _divisor_constants(d)
+    assert m < 2 ** 64
+    assert (1 << (63 + l)) <= m * d <= (1 << (63 + l)) + (1 << l)
+    assert _cuda.divisor_constants(d) == (m - 2 ** 64 if m >= 2 ** 63
+                                          else m, l)
+    rng = np.random.default_rng(d)
+    edges = [0, 1, d - 1, d, d + 1, 2 ** 44 - 1, 2 ** 44, 2 ** 44 + 1,
+             2 ** 62, 2 ** 63 - 1]
+    b = np.concatenate([
+        np.array(edges, dtype=np.int64),
+        rng.integers(0, 2 ** 63 - 1, 4000, dtype=np.int64, endpoint=True),
+        rng.integers(0, 2 ** 49, 4000, dtype=np.int64),
+        rng.integers(0, 64 * d, 2000, dtype=np.int64),
+        # Either side of multiples of d, where a quotient off by one shows.
+        (rng.integers(1, (2 ** 63 - 2) // d, 2000, dtype=np.int64) * d
+         + rng.integers(-1, 2, 2000, dtype=np.int64))])
+    r = np.full(len(b), -1, dtype=np.int64)
+    host_lib.ws_host_mod(b.ctypes.data, len(b), d, m, l, r.ctypes.data)
+    assert r.tolist() == [int(x) % d for x in b]
+
+
+def test_marshal_divisor_columns_match_independent_constants():
+    """Every unit's multiply-high columns, across the paper suite and the
+    odd and 16-SM geometries, equal the test's own constants for its
+    nctrl and n_sets."""
+    cfgs = (list(rmachines.paper_suite().values()) + _smoke_odd_suite()
+            + _sixteen_sm_suite() + _wide_way_suite())
+    _ref, port = _family_pairs(get_workload("BFS", n_threads=64), cfgs)
+    fam = _cuda.marshal([(_cuda.stream_cols(s), c) for s, c in port],
+                        device="cpu")
+    for row, (_s, cfg) in zip(fam.up.tolist(), port):
+        p = dict(zip(_cuda.UP_COLS, row))
+        assert (p["nctrl"], p["n_sets"]) == (cfg.num_mem_ctrls, cfg.l1_sets)
+        for d, col in ((p["nctrl"], "ctrl"), (p["n_sets"], "sets")):
+            m, l = _divisor_constants(d)
+            assert (p[f"{col}_mul"] % 2 ** 64, p[f"{col}_shift"]) == (m, l)
 
 
 def test_cuda_source_host_build_matches_native(host_lib):
@@ -692,14 +767,13 @@ def test_kernels_match_plain_versions_on_card(card, bench):
     units = [(_cuda.stream_cols(s), c) for s, c in port]
     fam = _cuda.marshal(units, device=card)
     before = {k: _cuda.launch_count(k) for k in _cuda.KERNELS}
-    prepped = _cuda.prep(fam)
-    for got, want in zip(prepped, _cuda.prep_ref(fam.up, fam.fp, fam.blocks,
-                                                 fam.nbytes)):
+    for got, want in zip(_cuda.prep(fam), _cuda.prep_ref(
+            fam.up, fam.fp, fam.blocks, fam.nbytes)):
         assert torch.equal(got, want)
-    cycles, counts = _cuda.simulate_family(fam, *prepped)
+    cycles, counts = _cuda.simulate_family(fam)
     torch.cuda.synchronize()
     cpu = _cuda.marshal(units, device="cpu")
-    want_c, want_n = _cuda.simulate_family_ref(cpu, *_cuda.prep(cpu))
+    want_c, want_n = _cuda.simulate_family(cpu)
     assert torch.equal(cycles.cpu(), want_c)
     assert torch.equal(counts.cpu(), want_n)
     assert {k: _cuda.launch_count(k) - before[k] for k in _cuda.KERNELS} \
@@ -724,12 +798,11 @@ def test_k2_placements_match_plain_versions_on_card(card, placement):
         if placement == "shared" and fam.state_bytes > _cuda.SMEM_LIMIT:
             continue
         cpu = _cuda.marshal(units, device="cpu")
-        want_c, want_n = _cuda.simulate_family_ref(cpu, *_cuda.prep(cpu))
+        want_c, want_n = _cuda.simulate_family(cpu)
         picked = _cuda.placement(fam)
         for where in {picked, placement}:
             before = _cuda.route_count("ws_family_kernel", where)
-            cycles, counts = _cuda.simulate_family(fam, *_cuda.prep(fam),
-                                                   where=where)
+            cycles, counts = _cuda.simulate_family(fam, where=where)
             torch.cuda.synchronize()
             assert _cuda.route_count("ws_family_kernel", where) == before + 1
             assert torch.equal(cycles.cpu(), want_c), (where, picked)
@@ -745,6 +818,25 @@ def test_study_on_card_matches_cpu(card):
     assert got.stats["family_launches"] == 5
     assert [dataclasses.asdict(r) for r in got.records] == [
         dataclasses.asdict(r) for r in want.records]
+
+
+@pytest.mark.gpu
+def test_paper_study_on_card_launches_one_kernel_a_family(card):
+    """The paper grid (seeds 0-2, 45 trace families) on the card: one K2
+    launch a family and no K1 launch, with every record equal to the
+    reference grid file."""
+    _cuda.reset_launch_counts()
+    got = tapi.Session(device=card).run(tapi.Study(seeds=(0, 1, 2),
+                                                   engine="cuda"))
+    torch.cuda.synchronize()
+    assert got.stats["family_launches"] == 45
+    assert {k: _cuda.launch_count(k) for k in _cuda.KERNELS} == {
+        "ws_prep_kernel": 0, "ws_family_kernel": 45}
+    with open(GRID_FILE, encoding="utf-8") as fh:
+        want = json.load(fh)["records"]
+    assert [{"machine": r.machine, "bench": r.bench, "seed": r.seed,
+             "n_threads": r.n_threads, "result": _encode_result(r.result)}
+            for r in got.records] == want
 
 
 if __name__ == "__main__":
