@@ -9,7 +9,9 @@
    with K1 folded in, and K1's check entry) and the LM kernels (K3
    ``gather_rows_kernel``, K4 ``gmm_kernel``, K5
    ``flash_attention_kernel``, K6 ``ssd_scan_kernel``), and prints
-   each one's ``ptxas -v`` report (registers, shared memory, spills).
+   each one's ``ptxas -v`` report (registers, shared memory, spills);
+   beside them, ``cc`` builds the host aggregation core
+   (``csrc/warpsim_aggregate.c``).
 3. Holds K1's code alone (``ws_prep_kernel``, the check entry) against
    ``prep_ref`` on the same card tensors, and K2 (``ws_family_kernel``,
    which preps the blocks it stages) against ``simulate_family_ref`` run
@@ -30,10 +32,30 @@
    a family, and no ``ws_prep_kernel`` launch, ``prep`` or ``prep_ref``
    call), and holds every record bit for bit against the reference grid
    file
-   ``src/repro_torch/core/warpsim/data/paper_grid_seeds012.json``. A
-   second run of the same study under torch.profiler gives that run's
-   wall time, device busy time and idle share.
+   ``src/repro_torch/core/warpsim/data/paper_grid_seeds012.json``.
+   Three more runs time the host stages by host clock (trace builds,
+   aggregations, marshalling, the rest of each launch, the waits for
+   results) and the wall; a run under torch.profiler gives its wall,
+   device busy time and idle share, beside chip run 8's, and whether the
+   wall is below the host stages plus the busy time (host and card
+   overlapping: each family's host stages run while the family before
+   it is on the card).
 6. Prints the paper's headline table.
+6a. Runs the dense warp-size sweep (ws4..ws128) and Fig. 1's SIMD sweeps
+   (8/16/32 x warp sizes {1,2,4,8} x SIMD width), seed 0, on the card,
+   with the launch counts set to 0 just before and read just after (one
+   ``ws_family_kernel`` launch a family, 60 in all), and holds their 90
+   and 180 records bit for bit against the reference's files
+   (``dense_grid_seed0.json``, ``simd_grids_seed0.json``).
+6b. Holds K2 against ``simulate_family_ref`` on every family of the dense
+   sweep (whose ws4 units have 512 warps, past the 256 K2 keeps in
+   registers) and of simd32 (warps of up to 256 threads), in the
+   placement the wrapper picks, and prints it and the state's bytes.
+6c. Runs the paper grid twice through ``Session(cache_dir=...)`` (a
+   directory under ``build/``, removed after): the second run simulates
+   nothing and launches nothing, with the first's records; then
+   ``Session.cell("BFS", "SW+")`` on a fresh session and the cache's entry
+   under ``cell_key`` both equal the grid's record.
 7. Times each family kernel per seed-0 family (warm-up first) by
    torch.profiler's device time, which is the JSON ``ms``, and prints
    CUDA events over back-to-back wrapper calls (launch overhead included)
@@ -112,8 +134,10 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -131,8 +155,16 @@ PEAK_BF16_OPS_PER_S = 989e12
 # The "FP32" row (outside the tensor cores, NVIDIA data sheet): float32
 # kernels held to the reference's float32 tolerances cannot use TF32.
 PEAK_FP32_OPS_PER_S = 67e12
-GRID_FILE = os.path.join(ROOT, "src", "repro_torch", "core", "warpsim",
-                         "data", "paper_grid_seeds012.json")
+STUDY_DATA = os.path.join(ROOT, "src", "repro_torch", "core", "warpsim",
+                          "data")
+GRID_FILE = os.path.join(STUDY_DATA, "paper_grid_seeds012.json")
+# The reference's records of the dense warp-size sweep and of Fig. 1's SIMD
+# sweeps, with the studies that made them.
+SWEEP_FILES = {"dense": os.path.join(STUDY_DATA, "dense_grid_seed0.json"),
+               "simd": os.path.join(STUDY_DATA, "simd_grids_seed0.json")}
+# Chip run 8 of the paper study (PR 16), beside which this run's are printed.
+RUN8_STUDY = {"wall_s": 0.850, "busy_ms": 179.7, "idle": 0.7576}
+HOST_STAGES = ("trace", "aggregate", "marshal", "launch", "wait")
 SOURCE = "src/repro_torch/core/warpsim/csrc/warpsim_family.cu"
 REPLACES = {"ws_prep_kernel": "src/repro/core/warpsim/_pallas.py:192",
             "ws_family_kernel": "src/repro/core/warpsim/_pallas.py:233",
@@ -398,6 +430,68 @@ def check_families(warpsim, fams, err, where=None):
                  f"{[c.name for _, c in units]}: {cycles.tolist()} "
                  f"{counts.tolist()} vs {w_cyc.tolist()} {w_cnt.tolist()}")
     return plain_ms
+
+
+def check_records(records, want, label) -> None:
+    """Fail unless `records` equal the grid file's `want` (floats as
+    ``float.hex()``) bit for bit, coordinates and order included."""
+    if len(records) != len(want):
+        fail(f"{label}: {len(records)} records, {len(want)} in the file")
+    bad = 0
+    for rec, w in zip(records, want):
+        got = dataclasses.asdict(rec.result)
+        exp = {k: float.fromhex(v) if isinstance(v, str)
+               and k not in ("name", "machine") else v
+               for k, v in w["result"].items()}
+        coords = (rec.machine, rec.bench, rec.seed, rec.n_threads)
+        if coords != (w["machine"], w["bench"], w["seed"], w["n_threads"]) \
+                or got != exp or not math.isfinite(got["cycles"]):
+            bad += 1
+            if bad <= 3:
+                print(f"  mismatch {coords}: {got} != {exp}")
+    if bad:
+        fail(f"{bad} of {len(want)} {label} records differ from the "
+             f"reference")
+
+
+@contextlib.contextmanager
+def stage_timers(sweep_mod, cuda_mod):
+    """Within the block, sum the host-clock seconds of the study's host
+    stages (the dict it yields): the trace builds and aggregations the
+    sweep calls, the marshalling and the rest of each family launch (the
+    enqueue), and the waits for a launch's results. Wraps the functions
+    where the sweep looks them up."""
+    secs = dict.fromkeys(HOST_STAGES, 0.0)
+    targets = {"trace": (sweep_mod, "build_thread_trace"),
+               "aggregate": (sweep_mod, "aggregate_stream"),
+               "marshal": (cuda_mod, "marshal"),
+               "launch": (cuda_mod, "launch_family"),
+               "wait": (cuda_mod, "collect")}
+    saved = {k: getattr(m, n) for k, (m, n) in targets.items()}
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                secs[key] += time.perf_counter() - t0
+        return call
+    for key, (mod, name) in targets.items():
+        setattr(mod, name, timed(key, saved[key]))
+    try:
+        yield secs
+    finally:
+        for key, (mod, name) in targets.items():
+            setattr(mod, name, saved[key])
+        secs["launch"] -= secs["marshal"]   # marshal runs inside the launch
+
+
+def split_line(secs, wall) -> str:
+    """The host-stage split of one study run, in ms, and the rest."""
+    parts = " ".join(f"{k} {1e3 * secs[k]:.3f}" for k in HOST_STAGES)
+    rest = wall - sum(secs.values())
+    return f"{parts}, other host {1e3 * rest:.3f} ms"
 
 
 @contextlib.contextmanager
@@ -1342,9 +1436,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device: nothing to run")
     import repro_torch.core.warpsim as warpsim
+    from repro_torch.core.warpsim import runner
     from repro_torch import _nvcc
     from repro_torch import kernels as lm_kernels
-    from repro_torch.core.warpsim import _cuda, api, machines
+    from repro_torch.core.warpsim import _cuda, _native, api, machines
+    from repro_torch.core.warpsim import sweep as sweep_mod
     from repro_torch.core.warpsim.trace import BENCHMARKS
     from repro_torch.kernels import _lib as lm_lib
 
@@ -1358,8 +1454,10 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    # ---- build: one nvcc per source, all started together ---------------
-    builds = {"warpsim_family": _cuda.build}
+    # ---- build: one compiler per source, all started together -----------
+    # (nvcc for the kernels; cc for the host aggregation core)
+    builds = {"warpsim_family": _cuda.build,
+              "warpsim_aggregate": _native.build}
     for name in lm_lib.KERNELS:
         builds[name] = (lambda n=name: lm_lib.build(n))
 
@@ -1376,6 +1474,8 @@ def main() -> None:
     for name, (path, secs) in built.items():
         print(f"  {name}: {secs:.3f} s -> {os.path.relpath(path, ROOT)}")
     for name in builds:
+        if name == "warpsim_aggregate":
+            continue
         for line in _nvcc.build_log(built[name][0]).splitlines():
             if "ptxas info" in line or "spill" in line:
                 print(f"  ptxas {line.split('ptxas info')[-1].strip(' :')}")
@@ -1443,23 +1543,7 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: _cuda.launch_count(k) for k in _cuda.KERNELS}
-    if len(res.records) != 270 or len(ref) != 270:
-        fail(f"{len(res.records)} records, {len(ref)} in the grid file")
-    bad = 0
-    for rec, want in zip(res.records, ref):
-        got = dataclasses.asdict(rec.result)
-        exp = {k: float.fromhex(v) if isinstance(v, str)
-               and k not in ("name", "machine") else v
-               for k, v in want["result"].items()}
-        coords = (rec.machine, rec.bench, rec.seed, rec.n_threads)
-        if coords != (want["machine"], want["bench"], want["seed"],
-                      want["n_threads"]) or got != exp \
-                or not math.isfinite(got["cycles"]):
-            bad += 1
-            if bad <= 3:
-                print(f"  mismatch {coords}: {got} != {exp}")
-    if bad:
-        fail(f"{bad} of 270 records differ from the reference grid")
+    check_records(res.records, ref, "paper grid")
     if res.stats["family_launches"] != 45:
         fail(f"family_launches {res.stats['family_launches']} != 45")
     # One kernel a family: K2 preps the blocks itself, so the path launches
@@ -1479,13 +1563,36 @@ def main() -> None:
     print(f"main path wall: {wall:.3f} s for 270 cells "
           f"(host stages + 45 family launches) [{card}]")
 
-    # ---- where the device time goes: a second run, traced ----------------
-    t_wall, parts = profiled_run(
-        torch, lambda: api.Session(device=dev).run(study))
+    # ---- the host stages, by host clock; then a run traced ----------------
+    stamp("the study's host stages, wall and idle share")
+    walls = []
+    for i in range(3):
+        with stage_timers(sweep_mod, _cuda) as secs:
+            t0 = time.perf_counter()
+            api.Session(device=dev).run(study)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"  unprofiled run {i + 1}: wall {1e3 * walls[-1]:.3f} ms: "
+              f"{split_line(secs, walls[-1])} [{card}]")
+    print(f"study wall, unprofiled, median of 3: "
+          f"{statistics.median(walls):.4f} s (run 8: "
+          f"{RUN8_STUDY['wall_s']} s) [{card}]")
+    with stage_timers(sweep_mod, _cuda) as secs:
+        t_wall, parts = profiled_run(
+            torch, lambda: api.Session(device=dev).run(study))
     busy = sum(parts.values())
-    print(f"traced second run: wall {1e3 * t_wall:.3f} ms, device busy "
-          f"{busy:.3f} ms, idle share {1 - busy / (1e3 * t_wall):.4f} (both "
-          f"from this run, under torch.profiler) [{card}]")
+    host = sum(secs[k] for k in ("trace", "aggregate", "marshal", "launch"))
+    print(f"traced run: wall {1e3 * t_wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / (1e3 * t_wall):.4f} (run 8: "
+          f"{RUN8_STUDY['busy_ms']} ms, {RUN8_STUDY['idle']}; all from this "
+          f"run, under torch.profiler) [{card}]")
+    print(f"  host stages: {split_line(secs, t_wall)}")
+    print(f"  overlap: wall {1e3 * t_wall:.3f} ms "
+          f"{'<' if 1e3 * t_wall < 1e3 * host + busy else '>='} host stages "
+          f"{1e3 * host:.3f} + device busy {busy:.3f} = "
+          f"{1e3 * host + busy:.3f} ms; device busy a family "
+          f"{busy / 45:.3f} ms against the host stages' "
+          f"{1e3 * host / 45:.3f} ms")
     for key, ms in sorted(parts.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  {ms:10.3f} ms  {key[:70]}")
 
@@ -1494,6 +1601,90 @@ def main() -> None:
     for metric, band in res.bands().items():
         print(f"  {metric:40s} {band['mean']:.6f} "
               f"[{band['min']:.6f}, {band['max']:.6f}]")
+
+    # ---- the dense and SIMD warp-size sweeps -------------------------------
+    stamp("the dense and SIMD warp-size sweeps")
+    sweep_studies = {}
+    for name, path in SWEEP_FILES.items():
+        with open(path, encoding="utf-8") as fh:
+            blob = json.load(fh)
+        studies = [api.Study.from_dict(dict(d, engine="cuda"))
+                   for d in blob["studies"]]
+        sweep_studies[name] = studies
+        session = api.Session(device=dev)
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs = [session.run(st) for st in studies]
+        torch.cuda.synchronize()
+        s_wall = time.perf_counter() - t0
+        n_launch = {k: _cuda.launch_count(k) for k in _cuda.KERNELS}
+        n_fam = sum(r.stats["trace_families"] for r in runs)
+        if n_launch != {"ws_prep_kernel": 0, "ws_family_kernel": n_fam} \
+                or any(r.stats["family_launches"] != 15 for r in runs):
+            fail(f"{name} sweep: launches {n_launch} for {n_fam} families, "
+                 f"stats {[r.stats for r in runs]}")
+        check_records([rec for r in runs for rec in r.records],
+                      blob["records"], f"{name} sweep")
+        print(f"{name} sweep: {sum(len(r) for r in runs)} records == "
+              f"reference (bit for bit), {n_fam} families, launches "
+              f"{n_launch}, wall {s_wall:.3f} s [{card}]")
+        for r in runs:
+            for m in r.machines:
+                print(f"  {m:12s} geomean IPC "
+                      f"{runner.mean_ipc(r.per_bench(m)):.6f}")
+
+    # ---- K2 on the sweeps' widest shapes ------------------------------------
+    stamp("K2 on every ws4 and simd32 family")
+    wide_fams = {}
+    dense_cfgs = list(sweep_studies["dense"][0].machine_set().values())
+    simd32_cfgs = list(sweep_studies["simd"][2].machine_set().values())
+    for tag, cfgs in (("ws4", dense_cfgs), ("simd32", simd32_cfgs)):
+        for bench in BENCHMARKS:
+            units = family_units(warpsim, bench, None, 0, cfgs)
+            wide_fams[(bench, tag)] = (units, _cuda.marshal(units, dev))
+    check_families(warpsim, wide_fams, err)
+    torch.cuda.synchronize()
+    print(f"K1, K2 == plain versions on the {len(wide_fams)} families of the "
+          f"dense sweep (ws4..ws128; ws4: 512 warps a unit) and of simd32 "
+          f"(ws32..ws256), K2 in the placement the wrapper picks:")
+    for (bench, tag), (units, fam) in wide_fams.items():
+        widest = max(st.n_warps for st, _cfg in units)
+        print(f"  {tag:6s} {bench:5s} warps {widest:4d} placement "
+              f"{_cuda.placement(fam):6s} state {fam.state_bytes} bytes")
+    del wide_fams
+
+    # ---- a warm cache ----------------------------------------------------
+    stamp("warm cache and Session.cell")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        cold = api.Session(device=dev, cache_dir=tmp).run(study)
+        check_records(cold.records, ref, "cold cached run")
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        warm = api.Session(device=dev, cache_dir=tmp).run(study)
+        warm_wall = time.perf_counter() - t0
+        n_warm = _cuda.launch_count("ws_family_kernel")
+        if warm.stats["simulated"] or warm.stats["family_launches"] \
+                or n_warm or warm.stats["cache_hits"] != 270:
+            fail(f"the warm run simulated: stats {warm.stats}, "
+                 f"{n_warm} launches")
+        check_records(warm.records, ref, "warm cached run")
+        cfg = machines.sw_plus()
+        grid_rec = dataclasses.asdict(
+            res.by(machine="SW+", bench="BFS", seed=0).one())
+        cell = api.Session(device=dev).cell("BFS", "SW+")
+        read = sweep_mod.ResultCache(tmp).get(
+            sweep_mod.cell_key("BFS", cfg, None, 0))
+        if dataclasses.asdict(cell) != grid_rec or read is None \
+                or dataclasses.asdict(read) != grid_rec:
+            fail(f"Session.cell or the cache's cell differs from the grid's "
+                 f"record: {cell} / {read} / {grid_rec}")
+    print(f"warm cache: cold run {cold.stats['simulated']} simulated, "
+          f"{cold.stats['family_launches']} launches; warm run "
+          f"{warm.stats['cache_hits']} hits, 0 simulated, {n_warm} launches, "
+          f"{1e3 * warm_wall:.3f} ms; records == the grid's; "
+          f"Session.cell('BFS', 'SW+') and the cache's cell_key entry == the "
+          f"grid's record [{card}]")
 
     # ---- timing per family (seed 0) ---------------------------------------
     stamp("K1/K2 timing per family")

@@ -34,12 +34,15 @@ def find_nvcc() -> str:
 
 
 def build_shared(main: Path, deps: Sequence[Path], flags: Sequence[str],
-                 build_dir: Path, nvcc: Callable[[], str]) -> str:
+                 build_dir: Path, nvcc: Callable[[], str],
+                 tool: str = "nvcc") -> str:
     """Compile `main` (which includes `deps`) with `flags`, once per hash of
-    the sources and flags; returns the library's path.
+    the sources and flags; returns the library's path. `nvcc` returns the
+    compiler's path; `tool` names it in errors (the host C core of
+    ``core/warpsim/_native.py`` is built the same way with ``cc``).
 
-    Raises RuntimeError with nvcc's output when the build fails, and
-    leaves nothing behind in `build_dir` then.
+    Raises RuntimeError with the compiler's output when the build fails,
+    and leaves nothing behind in `build_dir` then.
     """
     h = hashlib.sha256(" ".join(flags).encode())
     for path in (main, *deps):
@@ -52,7 +55,7 @@ def build_shared(main: Path, deps: Sequence[Path], flags: Sequence[str],
     cmd = [nvcc(), *flags, "-o", str(tmp), str(main)]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
+        raise RuntimeError(f"{tool} failed ({r.returncode}): {' '.join(cmd)}\n"
                            f"{r.stdout}{r.stderr}")
     so.with_suffix(".log").write_text(r.stdout + r.stderr, encoding="utf-8")
     os.replace(tmp, so)     # atomic: concurrent builds race benignly
@@ -60,6 +63,6 @@ def build_shared(main: Path, deps: Sequence[Path], flags: Sequence[str],
 
 
 def build_log(so_path: str) -> str:
-    """nvcc's output of the build that made `so_path`."""
+    """The compiler's output of the build that made `so_path`."""
     log = Path(so_path).with_suffix(".log")
     return log.read_text(encoding="utf-8") if log.exists() else ""

@@ -69,6 +69,9 @@ _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_PATH: Optional[str] = None
+_TORCH_DTYPE = {np.dtype(np.int64).str: torch.int64,
+                np.dtype(np.int8).str: torch.int8,
+                np.dtype(np.float64).str: torch.float64}
 
 
 def launch_count(kernel: str) -> int:
@@ -339,12 +342,26 @@ def marshal(units: Sequence[Tuple[StreamCols, MachineConfig]],
         scratch += small + big + big % 2  # keeps every part 16-byte aligned
         state = max(state, 8 * (small + big))
 
-    def t(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if dev.type == "cuda":
+        # Each column is concatenated straight into pinned host memory and
+        # copied with non_blocking=True: a blocking copy synchronizes the
+        # stream, holding the host until the family still running on it
+        # has finished. The caching host allocator reuses a pinned block
+        # only once the copies recorded on it have run.
+        def t(parts: List[np.ndarray]) -> torch.Tensor:
+            host = torch.empty(sum(len(a) for a in parts),
+                               dtype=_TORCH_DTYPE[parts[0].dtype.str],
+                               pin_memory=True)
+            np.concatenate(parts, out=host.numpy())
+            return host.to(dev, non_blocking=True)
+    else:
+        def t(parts: List[np.ndarray]) -> torch.Tensor:
+            return torch.from_numpy(np.concatenate(parts))
 
     return Family(
-        up=t(up), fp=t(fp),
-        **{k: t(np.concatenate(v)) for k, v in cols.items()},
+        up=t([up.reshape(-1)]).view(up.shape),
+        fp=t([fp.reshape(-1)]).view(fp.shape),
+        **{k: t(v) for k, v in cols.items()},
         scratch_len=scratch, state_bytes=state,
         max_blocks=int(up[:, _UP["n_blocks"]].max()))
 
@@ -606,16 +623,31 @@ def _check_family(fam: Family) -> None:
 # ---------------------------------------------------------------------------
 
 
-def run_family(pairs, device="cuda", engine: str = "auto"
-               ) -> List[Tuple[float, int, int, int]]:
-    """Simulate a trace family in ONE kernel launch.
+@dataclasses.dataclass
+class Launch:
+    """A family launched by :func:`launch_family`, read by :func:`collect`.
+
+    On a card, `cycles`/`counts` are pinned host tensors that a
+    non-blocking copy fills behind the launch, and `done` is the event
+    recorded after that copy. `inputs` keeps the marshalled family's
+    device tensors, which the kernel reads, alive until the launch is read.
+    """
+
+    cycles: torch.Tensor    # float64[U]
+    counts: torch.Tensor    # int64[U, 3]
+    done: Optional["torch.cuda.Event"]
+    inputs: Optional[Family]
+
+
+def launch_family(pairs, device="cuda", engine: str = "auto") -> Launch:
+    """Marshal a trace family and launch it, in ONE kernel launch, without
+    waiting for the card.
 
     ``pairs`` is ``[(WarpStream, MachineConfig), ...]`` — every expansion
     key x machine variant of one ThreadTrace (streams may repeat across
-    variants that share an expansion). Returns ``(raw_cycles, offchip,
-    merged, l1_hits)`` per pair, in order. `engine` must match `device`
+    variants that share an expansion). `engine` must match `device`
     (:func:`resolve_engine`): the kernel on a card, the plain versions on
-    the CPU.
+    the CPU (which finish before this returns).
     """
     resolve_engine(engine, device)
     col_cache: dict = {}
@@ -625,9 +657,33 @@ def run_family(pairs, device="cuda", engine: str = "auto"
         if cols is None:
             cols = col_cache[id(stream)] = stream_cols(stream)
         units.append((cols, cfg))
-    cycles, counts = simulate_family(marshal(units, device))
-    return [(c, o, m, h) for c, (o, m, h) in zip(cycles.tolist(),
-                                                  counts.tolist())]
+    fam = marshal(units, device)
+    cycles, counts = simulate_family(fam)
+    if fam.device.type == "cpu":
+        return Launch(cycles, counts, None, None)
+    host_c = torch.empty(cycles.shape, dtype=cycles.dtype, pin_memory=True)
+    host_n = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
+    host_c.copy_(cycles, non_blocking=True)
+    host_n.copy_(counts, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(fam.device))
+    return Launch(host_c, host_n, done, fam)
+
+
+def collect(launch: Launch) -> List[Tuple[float, int, int, int]]:
+    """Wait for a launch and return ``(raw_cycles, offchip, merged,
+    l1_hits)`` per pair, in order."""
+    if launch.done is not None:
+        launch.done.synchronize()
+    return [(c, o, m, h) for c, (o, m, h) in zip(launch.cycles.tolist(),
+                                                  launch.counts.tolist())]
+
+
+def run_family(pairs, device="cuda", engine: str = "auto"
+               ) -> List[Tuple[float, int, int, int]]:
+    """Simulate a trace family in ONE kernel launch and wait for it:
+    :func:`collect` of :func:`launch_family`."""
+    return collect(launch_family(pairs, device, engine))
 
 
 def run_scheduling_loop(n_warps: int, op_start, issue, kind, blk_off,

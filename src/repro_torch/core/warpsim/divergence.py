@@ -30,8 +30,10 @@ family launch in :mod:`repro_torch.core.warpsim._cuda`):
 2. :func:`aggregate_stream` replays the trace for one
    ``MachineConfig.expansion_key()`` (warp size, SIMD width, MIMD flag,
    transaction bytes) and emits the :class:`WarpStream` — per-warp issue
-   occupancy and intra-warp (or per-fragment) coalescing — with one
-   vectorized numpy pass per event.
+   occupancy and intra-warp (or per-fragment) coalescing — through the C
+   core of :mod:`~repro_torch.core.warpsim._native` (``impl="native"``,
+   the study's path) or one vectorized numpy pass per event
+   (``impl="python"``, its plain version); both give the same columns.
 
 :func:`expand_stream` composes the two phases; sweeps share one trace
 across every expansion key of a workload.
@@ -44,7 +46,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.core.warpsim import coalesce
+from repro_torch.core.warpsim import _native, coalesce
 from repro_torch.core.warpsim.config import MachineConfig
 from repro_torch.core.warpsim.trace import (
     TEV_COMPUTE, TEV_LOAD, TEV_RESET, TEV_SPLIT, TEV_STORE,
@@ -263,11 +265,14 @@ def _assemble_stream(n_warps: int, simd: int, warp, issue, tins, kind,
     )
 
 
-def aggregate_stream(trace: ThreadTrace, cfg: MachineConfig) -> WarpStream:
+def aggregate_stream(trace: ThreadTrace, cfg: MachineConfig,
+                     impl: str = "native") -> WarpStream:
     """Phase 2: replay a :class:`ThreadTrace` for one expansion key.
 
     All-integer arithmetic and canonical sort orders, so the stream is a
-    pure function of ``(trace, cfg.expansion_key())``.
+    pure function of ``(trace, cfg.expansion_key())``. ``impl="native"``
+    runs the C core (its build failing raises); ``impl="python"`` the
+    numpy pass, the plain version the tests hold the core against.
     """
     n = trace.n_threads
     ws = cfg.warp_size
@@ -275,6 +280,16 @@ def aggregate_stream(trace: ThreadTrace, cfg: MachineConfig) -> WarpStream:
         raise ValueError(f"n_threads {n} not a multiple of warp size {ws}")
     n_warps = n // ws
     simd = cfg.simd_width
+    if impl == "native":
+        (warp, issue, tins, kind, maccs, blk_off, blen, blocks, nbytes,
+         op_start) = _native.run_aggregation(trace, cfg)
+        return WarpStream(
+            n_warps=n_warps, warp=warp, issue=issue, tins=tins,
+            lanes=issue * simd, kind=kind, maccs=maccs, blk_off=blk_off,
+            blk_len=blen, blocks=blocks, nbytes=nbytes, op_start=op_start)
+    if impl != "python":
+        raise ValueError(f"unknown aggregation impl {impl!r}; use native "
+                         "or python")
 
     g_simt = cfg.issue_cycles_per_group
     tb = cfg.transaction_bytes

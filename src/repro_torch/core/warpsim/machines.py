@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable
 
 from repro_torch.core.warpsim.config import MachineConfig
 
@@ -34,6 +34,16 @@ def paper_suite(simd_width: int = 8) -> Dict[str, MachineConfig]:
     return suite
 
 
+def warp_size_sweep(simd_width: int, multipliers: Iterable[int] = (1, 2, 4, 8)
+                    ) -> Dict[str, MachineConfig]:
+    """Figure 1: warp sizes {1,2,4,8}x SIMD width for a given SIMD width."""
+    return {
+        f"simd{simd_width}_ws{m * simd_width}":
+            baseline(m * simd_width, simd_width)
+        for m in multipliers
+    }
+
+
 def expansion_groups(machine_set: Dict[str, MachineConfig]
                      ) -> Dict[tuple, list]:
     """Machine names bucketed by :meth:`MachineConfig.expansion_key`.
@@ -47,3 +57,11 @@ def expansion_groups(machine_set: Dict[str, MachineConfig]
     for name, cfg in machine_set.items():
         groups.setdefault(cfg.expansion_key(), []).append(name)
     return groups
+
+
+def sharing_plan(machine_set: Dict[str, MachineConfig]) -> str:
+    """One-line summary of the expansion sharing a machine set enjoys,
+    e.g. ``"6 machines -> 1 thread trace + 5 aggregations per workload"``."""
+    groups = expansion_groups(machine_set)
+    return (f"{len(machine_set)} machines -> 1 thread trace + "
+            f"{len(groups)} aggregations per workload")

@@ -1,12 +1,50 @@
-"""The paper's aggregation helpers: suite means and the headline table."""
+"""Benchmark x machine suite driver (over the ``api`` session) and the
+paper's aggregation helpers: suite means and the headline table."""
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping
+import json
+import os
+from typing import Dict, Iterable, Mapping, Optional
 
 import numpy as np
 
-from repro_torch.core.warpsim.timing import SimResult
+from repro_torch.core.warpsim import api
+from repro_torch.core.warpsim import sweep as sweep_mod
+from repro_torch.core.warpsim.config import MachineConfig
+from repro_torch.core.warpsim.divergence import expand_stream
+from repro_torch.core.warpsim.timing import SimResult, simulate
+from repro_torch.core.warpsim.trace import BENCHMARKS, get_workload
+
+
+def run_one(bench: str, cfg: MachineConfig, n_threads: Optional[int] = None,
+            seed: int = 0, engine: str = "auto", device="cuda") -> SimResult:
+    """One cell, expanded from scratch: a one-unit family launch."""
+    wl = get_workload(bench, n_threads=n_threads, seed=seed)
+    stream = expand_stream(wl, cfg)
+    return simulate(wl.name, stream, cfg, engine=engine, device=device)
+
+
+def run_suite(
+    machine_set: Optional[Mapping[str, MachineConfig]] = None,
+    benches: Iterable[str] = BENCHMARKS,
+    n_threads: Optional[int] = None,
+    seed: int = 0,
+    cache: Optional[sweep_mod.ResultCache] = None,
+    engine: str = "auto",
+    seeds: Optional[Iterable[int]] = None,
+    device="cuda",
+) -> Dict:
+    """``results[machine][bench] -> SimResult`` (``results[seed][machine]
+    [bench]`` with more than one seed), through a fresh
+    :class:`~repro_torch.core.warpsim.api.Session` on `device` over
+    `cache`. The nested-dict shape of the reference's ``run_suite``; new
+    code should hold the typed ``StudyResult``."""
+    study = api.Study(
+        benches=tuple(benches), machines=machine_set, n_threads=n_threads,
+        seeds=tuple(seeds) if seeds is not None else (seed,), engine=engine)
+    session = api.Session(device=device, result_cache=cache)
+    return session.run(study).legacy_grid()
 
 
 def geomean(xs: Iterable[float]) -> float:
@@ -81,3 +119,15 @@ def suite_summary(results: Mapping) -> dict:
                 s[f"swplus_coalescing_improvement_vs_{k}"] = (
                     mean_coalescing_improvement(results["SW+"], results[k]))
     return s
+
+
+def save_results(results: Mapping[str, Mapping[str, SimResult]],
+                 path: str) -> None:
+    """Write a one-seed grid as JSON (``SimResult.as_dict`` per cell)."""
+    blob = {m: {b: r.as_dict() for b, r in rb.items()}
+            for m, rb in results.items()}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(blob, f, indent=1)
+    os.replace(tmp, path)

@@ -55,6 +55,12 @@ class SimResult:
     def idle_share(self) -> float:
         return self.idle_cycles / max(self.cycles, 1.0)
 
+    def as_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d.update(ipc=self.ipc, coalescing_rate=self.coalescing_rate,
+                 idle_share=self.idle_share)
+        return d
+
 
 def stream_totals(st: WarpStream) -> tuple:
     """Order-independent totals ``(thread_insns, mem_insns, total_busy,

@@ -102,6 +102,13 @@ TEV_SPLIT = 3
 TEV_RESET = 4
 
 
+#: The ThreadTrace array fields, as a snapshot stores them (``.npz``, one
+#: array per field: the reference's layout, so either package reads a
+#: snapshot the other wrote).
+TRACE_FIELDS = ("ev_kind", "ev_mask", "ev_arg", "ev_addr", "masks",
+                "addr_off", "addr_vals")
+
+
 @dataclasses.dataclass
 class ThreadTrace:
     """Expansion-key-independent thread-level trace of one workload.

@@ -12,7 +12,8 @@ reference engine is bit-identical to every other.
 * The CUDA source's recurrence, built for the host with g++ (the host
   form of the warp's searches, K1 folded into K2's staging), equals the C
   core in both placements of K2's state, on the paper grid's seed-0
-  families and on odd, 16-SM and wider-than-32-way geometries; K1 alone
+  families, the dense and simd32 sweeps' seed-0 families and on odd,
+  16-SM and wider-than-32-way geometries; K1 alone
   equals ``prep_ref``; the multiply-high remainder equals Python's ``%``;
   the searches alone keep the tie rules.
 * The slice end to end: Session/Study records equal the reference's.
@@ -432,6 +433,18 @@ def test_host_build_matches_native_on_paper_grid_seed0(host_lib, bench):
 def test_host_build_matches_native_on_other_geometries(host_lib, bench,
                                                        suite):
     _check_host_build(host_lib, get_workload(bench, n_threads=256), suite())
+
+
+@pytest.mark.parametrize("sweep", ["dense", "simd32"])
+@pytest.mark.parametrize("bench", BENCHMARKS)
+def test_host_build_matches_native_on_sweep_families(host_lib, bench, sweep):
+    """The seed-0 families of the dense sweep (ws4 at 2,048 threads: 512
+    warps a unit) and of Fig. 1's simd32 sweep (warps of up to 256
+    threads) at the default sizes."""
+    cfgs = ([rmachines.baseline(w) for w in (4, 8, 16, 32, 64, 128)]
+            if sweep == "dense"
+            else list(rmachines.warp_size_sweep(32).values()))
+    _check_host_build(host_lib, get_workload(bench, seed=0), cfgs)
 
 
 def _first_min_pops(ready, after):
