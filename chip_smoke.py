@@ -56,6 +56,25 @@
    nothing and launches nothing, with the first's records; then
    ``Session.cell("BFS", "SW+")`` on a fresh session and the cache's entry
    under ``cell_key`` both equal the grid's record.
+6d. The sweep service on the card: starts ``python -m
+   repro_torch.core.warpsim.service --port 0 --cache-dir build/<tmp>``
+   (default engine and device) and reads its URL from its startup line;
+   its ``/healthz`` must say engine ``cuda`` and name the kernel library
+   built in step 2. Serves the 270-cell paper study through
+   ``Session(backend=ServiceBackend(url))`` cold (each record bit for bit
+   against the grid file; the daemon's ``ws_family_kernel`` launches, read
+   from ``/healthz`` before and after, must grow by 270: one a simulated
+   cell) and warm (0 simulated, 0 launches), printing both walls; sends
+   two concurrent ``GET /cell`` for one uncomputed cell (BFS, SW+, seed
+   3): simulated +1, dedup_waits +1, launches +1. On a fresh daemon runs
+   ``repro_torch.benchmarks.facade_parity``'s grid through
+   ``QueueBackend`` (this process drains it on the card), ``ServiceBackend``
+   and an in-process ``Session(device="cuda")``: all equal to each other
+   and to ``data/facade_grid_seeds01.json``. Between the two, runs the
+   daemon's core (``Session.cell``, one one-unit launch a cell) over the
+   270 cells in this process on one thread, unprofiled and traced: its
+   wall, the card's busy time and K2's share of it. Stops the daemons and
+   removes the cache.
 7. Times each family kernel per seed-0 family (warm-up first) by
    torch.profiler's device time, which is the JSON ``ms``, and prints
    CUDA events over back-to-back wrapper calls (launch overhead included)
@@ -524,6 +543,125 @@ def event_ms(torch, fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def service_phase(torch, ref, library, card):
+    """The sweep service on the card (phase 6d): a port daemon in a
+    subprocess computes each cell with one one-unit ``ws_family_kernel``
+    launch; its launch counts are read from its ``/healthz``. Fails on
+    any check; returns the phase's numbers for the summary line."""
+    from repro_torch.benchmarks import facade_parity, service_smoke
+    from repro_torch.core.warpsim import _cuda, api
+    from repro_torch.core.warpsim import sweep as sweep_mod
+
+    def get(url, path):
+        return service_smoke._get(url + path)
+
+    def n_launch(url):
+        return service_smoke.launches(url)
+
+    out = {}
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        t0 = time.perf_counter()
+        with service_smoke.boot_daemon(os.path.join(tmp, "a")) as url:
+            out["boot_s"] = time.perf_counter() - t0
+            health = get(url, "/healthz")
+            if health["engine"] != "cuda" or health["device"] != "cuda" \
+                    or health["cuda"]["library"] != library \
+                    or not health["native"]["loaded"]:
+                fail(f"daemon /healthz: engine {health['engine']}, device "
+                     f"{health['device']}, cuda {health['cuda']}, native "
+                     f"{health['native']}; the library built here is "
+                     f"{library}")
+            print(f"daemon at {url} (boot {out['boot_s']:.3f} s): engine "
+                  f"cuda, library {os.path.relpath(library, ROOT)}")
+            study = api.Study(seeds=(0, 1, 2), engine="cuda")
+            session = api.Session(backend=api.ServiceBackend(url))
+            for run in ("cold", "warm"):
+                n0 = n_launch(url)
+                sim0 = get(url, "/stats")["counters"]["simulated"]
+                t0 = time.perf_counter()
+                res = session.run(study)
+                out[f"{run}_s"] = time.perf_counter() - t0
+                n_run = n_launch(url) - n0
+                sim = get(url, "/stats")["counters"]["simulated"] - sim0
+                check_records(res.records, ref, f"service {run} study")
+                want = 270 if run == "cold" else 0
+                if n_run != want or sim != want \
+                        or res.stats["simulated"] != want:
+                    fail(f"service {run} study: {n_run} ws_family_kernel "
+                         f"launches, {sim} simulated (daemon), stats "
+                         f"{res.stats}; expected {want}")
+                out[f"{run}_launches"] = n_run
+                print(f"service {run} study: 270 records == reference grid "
+                      f"(bit for bit), {sim} simulated, {n_run} "
+                      f"ws_family_kernel launches in the daemon, wall "
+                      f"{out[f'{run}_s']:.4f} s [{card}]")
+            n0 = n_launch(url)
+            delta = service_smoke.dedup_check(
+                url, "bench=BFS&machine=SW%2B&seed=3", strict=True)
+            n_dedup = n_launch(url) - n0
+            if n_dedup != 1:
+                fail(f"the concurrent /cell pair launched {n_dedup} times")
+            print(f"concurrent cold /cell pair (BFS, SW+, seed 3): simulated "
+                  f"+{delta['simulated']}, dedup_waits "
+                  f"+{delta['dedup_waits']}, launches +{n_dedup}, served as "
+                  f"{delta['served']}")
+        # Where the cold study's time goes: the daemon's core, cell by cell
+        # (one one-unit launch each), in this process on one thread without
+        # HTTP, unprofiled, then traced for the card's busy time.
+        cells = sweep_mod.family_major_cells(study.cells())
+
+        def per_cell():
+            one = api.Session(device="cuda")
+            for _m, cfg, bench, n_threads, seed in cells:
+                one.cell(bench, cfg, n_threads=n_threads, seed=seed)
+
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        per_cell()
+        torch.cuda.synchronize()
+        out["per_cell_s"] = time.perf_counter() - t0
+        n_cells = _cuda.launch_count("ws_family_kernel")
+        t_wall, parts = profiled_run(torch, per_cell)
+        busy = sum(parts.values())
+        k2 = sum(ms for key, ms in parts.items() if "ws_family_kernel" in key)
+        if n_cells != 270:
+            fail(f"the per-cell path launched {n_cells} times, not 270")
+        out.update(per_cell_busy_ms=busy, per_cell_k2_ms=k2)
+        print(f"the daemon's core in this process, cell by cell on one "
+              f"thread, no HTTP: wall {out['per_cell_s']:.4f} s "
+              f"unprofiled, {n_cells} launches; traced wall "
+              f"{1e3 * t_wall:.3f} ms, device busy {busy:.3f} ms (K2 "
+              f"{k2:.3f} ms, {k2 / 270:.4f} ms a one-unit launch), idle "
+              f"share {1 - busy / (1e3 * t_wall):.4f} [{card}]")
+        # The facade grid three ways on a fresh daemon: queue (this process
+        # drains it on the card), service, in-process on the card.
+        with service_smoke.boot_daemon(os.path.join(tmp, "b")) as url:
+            _cuda.reset_launch_counts()
+            n0 = n_launch(url)
+            runs = facade_parity.run_backends(url, "cuda")
+            torch.cuda.synchronize()
+            here = _cuda.launch_count("ws_family_kernel")
+            there = n_launch(url) - n0
+            # 12 one-unit launches as the queue's worker, 4 family launches
+            # in process; the daemon adopts the worker's cells and serves
+            # the rest from its cache.
+            if here != 12 + 4 or there != 0:
+                fail(f"facade grid: {here} launches in this process, "
+                     f"{there} in the daemon; expected 16 and 0")
+            print(f"facade grid (BFS, DYN x ws8, SW+, ws16 x seeds 0-1, 128 "
+                  f"threads): queue, service and in-process on the card == "
+                  f"each other == facade_grid_seeds01.json; launches: {here} "
+                  f"here, {there} in the daemon; walls "
+                  + ", ".join(f"{k} {w:.4f} s" for k, (_r, w) in runs.items())
+                  + f" [{card}]")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"service phase: {out['phase_s']:.3f} s, daemons stopped, cache "
+          f"removed [{card}]")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1685,6 +1823,10 @@ def main() -> None:
           f"{1e3 * warm_wall:.3f} ms; records == the grid's; "
           f"Session.cell('BFS', 'SW+') and the cache's cell_key entry == the "
           f"grid's record [{card}]")
+
+    # ---- the sweep service on the card -----------------------------------
+    stamp("the sweep service on the card")
+    service_phase(torch, ref, built["warpsim_family"][0], card)
 
     # ---- timing per family (seed 0) ---------------------------------------
     stamp("K1/K2 timing per family")

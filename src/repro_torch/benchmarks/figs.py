@@ -10,9 +10,13 @@ coalescing rate, idle share, IPC). Each figure's data is also written as
 JSON under ``benchmarks/results/torch/`` (gitignored).
 
 Every grid runs through one :class:`~repro_torch.core.warpsim.api.Session`
-over an on-disk cell cache (``benchmarks/results/torch/sweep_cache`` by
-default), so a second run simulates nothing. The grids run on the card
-(the family kernels) unless ``--device cpu`` asks for the plain versions.
+built by ``Session.from_env``, as the reference's figures do: with
+``WARPSIM_SERVICE_URL`` (or ``WARPSIM_SERVICE_URLS``) naming a live
+daemon the grids are served by it (and a second run re-simulates
+nothing there); else they run in this process over an on-disk cell cache
+(``benchmarks/results/torch/sweep_cache`` by default), so a second run
+simulates nothing. In-process grids run on the card (the family kernels)
+unless ``--device cpu`` asks for the plain versions.
 """
 
 from __future__ import annotations
@@ -187,9 +191,10 @@ def main(argv=None) -> None:
     ap.add_argument("--only", default=None,
                     help="comma-separated figure names (default: all)")
     ap.add_argument("--cache-dir", default=SWEEP_CACHE_DIR,
-                    help="on-disk cell cache")
+                    help="on-disk cell cache of an in-process session")
     args = ap.parse_args(argv)
-    figs = Figures(api.Session(device=args.device, cache_dir=args.cache_dir))
+    figs = Figures(api.Session.from_env(cache_dir=args.cache_dir,
+                                        device=args.device))
     only = args.only.split(",") if args.only else None
     print("name,us_per_call,derived")
     for name, fn in figs.figures().items():

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -64,9 +65,14 @@ PLACEMENTS = ("shared", "global")
 SMEM_LIMIT = 232448 - 1024
 
 # Launches per kernel, counted by the wrappers where they launch, and K2's
-# launches per placement.
-_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
-_ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}
+# launches per placement. The sweep service launches from several threads
+# at once, so every update takes the lock.
+_COUNT_LOCK = threading.Lock()
+_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}  # guarded-by: _COUNT_LOCK
+_ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}  # guarded-by: _COUNT_LOCK
+# The library, loaded once: the first of several threads builds and binds
+# it while the others wait.
+_LIB_LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_PATH: Optional[str] = None
 _TORCH_DTYPE = {np.dtype(np.int64).str: torch.int64,
@@ -76,27 +82,42 @@ _TORCH_DTYPE = {np.dtype(np.int64).str: torch.int64,
 
 def launch_count(kernel: str) -> int:
     """Launches of `kernel` (one of :data:`KERNELS`) since the last reset."""
-    return _LAUNCHES[kernel]
+    with _COUNT_LOCK:
+        return _LAUNCHES[kernel]
 
 
 def route_count(kernel: str, route: str) -> int:
     """Launches of `kernel` by `route` (K2's placements,
     :data:`PLACEMENTS`) since the last reset."""
-    return _ROUTE_LAUNCHES.get((kernel, route), 0)
+    with _COUNT_LOCK:
+        return _ROUTE_LAUNCHES.get((kernel, route), 0)
+
+
+def count_launch(kernel: str, route: Optional[str] = None) -> None:
+    """Count one launch of `kernel` (by `route`, when it has routes); the
+    wrappers call it where they launch, and nowhere else."""
+    with _COUNT_LOCK:
+        _LAUNCHES[kernel] += 1
+        if route is not None:
+            key = (kernel, route)
+            _ROUTE_LAUNCHES[key] = _ROUTE_LAUNCHES.get(key, 0) + 1
 
 
 def reset_launch_counts() -> None:
-    for name in KERNELS:
-        _LAUNCHES[name] = 0
-    _ROUTE_LAUNCHES.clear()
+    with _COUNT_LOCK:
+        for name in KERNELS:
+            _LAUNCHES[name] = 0
+        _ROUTE_LAUNCHES.clear()
 
 
 def status() -> dict:
     """Whether a card is visible, which library is loaded, launch counts."""
+    with _COUNT_LOCK:
+        launches = dict(_LAUNCHES)
     return {
         "cuda_available": torch.cuda.is_available(),
         "library": _LIB_PATH,
-        "launches": dict(_LAUNCHES),
+        "launches": launches,
     }
 
 
@@ -135,9 +156,20 @@ def build() -> str:
                                    NVCC_FLAGS, BUILD_DIR, _nvcc)
 
 
+def load() -> str:
+    """Build (when needed) and load the kernel library; returns its path.
+    Raises RuntimeError with nvcc's output when the build fails."""
+    _lib()
+    return _LIB_PATH
+
+
 def _lib() -> ctypes.CDLL:
     global _LIB, _LIB_PATH
-    if _LIB is None:
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
         path = build()
         lib = ctypes.CDLL(path)
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
@@ -394,7 +426,7 @@ def prep(fam: Family) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
             ssvc.data_ptr(), fam.n_units, fam.max_blocks,
             torch.cuda.current_stream(fam.device).cuda_stream)
     _check_launch(lib, "ws_prep_kernel", code)
-    _LAUNCHES["ws_prep_kernel"] += 1
+    count_launch("ws_prep_kernel")
     return ctrl, si, ssvc
 
 
@@ -462,9 +494,7 @@ def simulate_family(fam: Family, where: Optional[str] = None
             counts.data_ptr(), fam.n_units, smem,
             torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(lib, "ws_family_kernel", code)
-    _LAUNCHES["ws_family_kernel"] += 1
-    key = ("ws_family_kernel", where)
-    _ROUTE_LAUNCHES[key] = _ROUTE_LAUNCHES.get(key, 0) + 1
+    count_launch("ws_family_kernel", where)
     return cycles, counts
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import shutil
+import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -30,7 +31,11 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "warpsim_aggregate.c"
 BUILD_DIR = build_mod.BUILD_DIR
 CFLAGS = ("-O2", "-fPIC", "-shared", "-ffp-contract=off", "-fno-fast-math")
 
+# The library, loaded once: the first of several threads (the sweep
+# service's) builds and binds it while the others wait.
+_LIB_LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+_LIB_PATH: Optional[str] = None
 
 
 def find_cc() -> str:
@@ -55,16 +60,39 @@ def build() -> str:
                                   tool="cc")
 
 
+def load() -> str:
+    """Build (when needed) and load the core; returns the library's path.
+    Raises RuntimeError with the compiler's output when the build fails."""
+    _lib()
+    return _LIB_PATH
+
+
+def status() -> dict:
+    """The core's report for the sweep service's ``/healthz`` (the
+    counterpart of the reference's ``_native.status``): whether it is
+    loaded, from which library, and the engine that aggregates
+    (``native``: this core; nothing else aggregates on the study's path,
+    so an unloaded core is ``unloaded``, never a fallback)."""
+    loaded = _LIB is not None
+    return {"loaded": loaded, "library": _LIB_PATH,
+            "engine": "native" if loaded else "unloaded"}
+
+
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(build())
+    global _LIB, _LIB_PATH
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
+        path = build()
+        lib = ctypes.CDLL(path)
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.warpsim_aggregate.argtypes = (
             [i64] * 6 + [i64, ptr, ptr, ptr, ptr] + [i64, ptr, ptr, ptr, ptr]
             + [i64] + [ptr] * 11)
         lib.warpsim_aggregate.restype = ctypes.c_int
-        _LIB = lib
+        _LIB, _LIB_PATH = lib, path
     return _LIB
 
 

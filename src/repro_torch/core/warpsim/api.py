@@ -1,21 +1,28 @@
-"""The facade of the warp-size study: Study, StudyResult, Session.
+"""The facade of the warp-size study: Study, StudyResult, backends, Session.
 
 * :class:`Study` — a declarative bench × machine × seed grid (or a dense
   warp-size range) plus the timing `engine` (``"cuda"``: the family
   kernels; ``"torch"``: their plain versions on the CPU; ``"auto"``:
-  whichever the session's device runs). JSON-safe via
-  :meth:`Study.to_dict` / :meth:`Study.from_dict`, in the reference's
-  encoding.
+  whichever the device runs). JSON-safe via :meth:`Study.to_dict` /
+  :meth:`Study.from_dict`, in the reference's encoding (the sweep
+  service's ``POST /study`` body).
 * :class:`StudyResult` — flat :class:`RunRecord` tuples in the study's
   fixed cell order, the run's stats, and accessors (:meth:`~StudyResult.by`,
   :meth:`~StudyResult.one`, :meth:`~StudyResult.per_bench`,
   :meth:`~StudyResult.grid`, :meth:`~StudyResult.summary`,
   :meth:`~StudyResult.bands`, :meth:`~StudyResult.to_json`).
-* :class:`Session` — runs studies in this process on one device
-  (``"cuda"`` unless the caller asks for ``"cpu"``) and owns the cache
+* :class:`Backend` — where a study runs: :class:`InProcessBackend` (this
+  process, one family launch per trace family on the session's device),
+  :class:`ServiceBackend` (a running sweep daemon, ``POST /study``) and
+  :class:`QueueBackend` (enqueue on a daemon, drain through the work
+  queue's worker loop on the session's device). All three give the same
+  records, bit for bit, as the reference's.
+* :class:`Session` — runs studies through its backend and owns the cache
   stack: an optional on-disk :class:`~repro_torch.core.warpsim.sweep.
   ResultCache` (`cache_dir`), shared with the reference package (same
-  keys, same files), and the session's own trace and expansion LRUs.
+  keys, same files), and the session's own trace and expansion LRUs. It
+  computes on one device (``"cuda"`` unless the caller asks for
+  ``"cpu"``).
 
 Usage::
 
@@ -24,19 +31,36 @@ Usage::
     res = session.run(api.Study(seeds=(0, 1, 2)))
     res.summary()["swplus_over_lwplus"]      # mean/min/max over seeds
     session.cell("BFS", "SW+").ipc           # one cell, cached
+
+    api.Session(backend=api.ServiceBackend("http://127.0.0.1:8321"))
+    api.Session.from_env(cache_dir=...)      # a live $WARPSIM_SERVICE_URL
+                                             # daemon, else in-process
+
+``WARPSIM_BACKEND`` (``inprocess`` | ``service`` | ``queue``) forces the
+:meth:`Session.from_env` choice, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import Dict, Iterator, Mapping, Optional, Tuple
 
+from repro_torch.core.warpsim import envcfg
 from repro_torch.core.warpsim import machines as machines_mod
+from repro_torch.core.warpsim import obs as obs_mod
 from repro_torch.core.warpsim import sweep as sweep_mod
 from repro_torch.core.warpsim.config import MachineConfig
+# Typed client errors, re-exported at the facade boundary: callers catch
+# api.ServiceError / api.ServiceUnavailable.
+from repro_torch.core.warpsim.faults import (  # noqa: F401 — re-exports
+    FaultPlan, ServiceError, ServiceUnavailable,
+)
 from repro_torch.core.warpsim.timing import SimResult
 from repro_torch.core.warpsim.trace import BENCHMARKS
+
+ENV_BACKEND = "WARPSIM_BACKEND"
 
 
 def resolve_machine_name(name: str, simd_width: int = 8) -> MachineConfig:
@@ -249,24 +273,171 @@ def records_from_grid(spec: sweep_mod.SweepSpec,
         for mname, _cfg, bench, n_threads, seed in spec.cells())
 
 
+# ---------------------------------------------------------------------------
+# Backends
+# ---------------------------------------------------------------------------
+
+
+class Backend:
+    """Execution protocol: turn a :class:`Study` into a :class:`StudyResult`.
+
+    Implementations receive the owning :class:`Session` so they can use
+    its cache stack and device (the in-process and queue backends do; the
+    service backend delegates both to the daemon it talks to). Records
+    are bit-identical across backends for the same study: results are
+    deterministic and content-addressed, so *where* a cell was computed
+    can never change *what* it is.
+    """
+
+    name = "abstract"
+
+    def run(self, study: Study, session: "Session") -> StudyResult:
+        raise NotImplementedError
+
+
+class InProcessBackend(Backend):
+    """This process: one family launch per trace family on the session's
+    device, through the session's caches."""
+
+    name = "inprocess"
+
+    def run(self, study: Study, session: "Session") -> StudyResult:
+        spec = study.to_spec()
+        results, stats = sweep_mod.run_sweep_with_stats(
+            spec, cache=session.result_cache, device=session.device,
+            engine=study.engine,
+            persist_traces=session.persist_traces,
+            trace_cache=session.trace_cache,
+            expansion_cache=session.expansion_cache)
+        return StudyResult(records=records_from_grid(spec, results),
+                           stats=stats, backend=self.name)
+
+
+class ServiceBackend(Backend):
+    """A running sweep daemon (``POST /study``): its cache, its LRUs, its
+    device. The daemon may be the port's or the reference's: the wire
+    forms are the same.
+
+    `urls` (a list, or one comma-separated string) builds a
+    :class:`~repro_torch.core.warpsim.service.ResilientClient` over the
+    fleet instead of a single-daemon
+    :class:`~repro_torch.core.warpsim.service.SweepClient`.
+    """
+
+    name = "service"
+
+    def __init__(self, url: Optional[str] = None, client=None,
+                 timeout: float = 600.0, urls=None):
+        if client is None and not url and not urls:
+            raise ValueError("ServiceBackend needs a url, urls, or a client")
+        self._client = client
+        if isinstance(urls, str):
+            urls = [u.strip() for u in urls.split(",") if u.strip()]
+        self.urls = list(urls) if urls else None
+        self.url = (url if url
+                    else (self.urls[0] if self.urls else client.base_url))
+        self.timeout = timeout
+
+    def client(self):
+        if self._client is None:
+            from repro_torch.core.warpsim import service as service_mod
+            if self.urls:
+                self._client = service_mod.ResilientClient(
+                    self.urls, timeout=self.timeout)
+            else:
+                self._client = service_mod.SweepClient(self.url,
+                                                       timeout=self.timeout)
+        return self._client
+
+    def run(self, study: Study, session: "Session") -> StudyResult:
+        res = self.client().study(study)
+        return dataclasses.replace(res, backend=self.name)
+
+
+class QueueBackend(Backend):
+    """Enqueue on a daemon, drain through the work-queue worker loop.
+
+    The daemon shards the study's *uncached* cells onto a lease-based
+    job, this process drains it as a worker on the session's device
+    (other workers on other hosts may drain it concurrently — leases keep
+    them from colliding), and the finished study is then fetched from the
+    daemon's cache. `stats` additionally carries ``queue_job`` and
+    ``queue_cells_computed`` (cells *this* worker simulated).
+    """
+
+    name = "queue"
+
+    def __init__(self, url: Optional[str] = None, chunk_size: int = 16,
+                 lease_seconds: Optional[float] = None,
+                 worker_id: Optional[str] = None,
+                 poll_seconds: float = 0.05, timeout: float = 600.0,
+                 client=None):
+        if client is None and not url:
+            raise ValueError("QueueBackend needs a url or a client")
+        self._client = client
+        self.url = url if url else client.base_url
+        self.chunk_size = chunk_size
+        self.lease_seconds = lease_seconds
+        self.worker_id = worker_id
+        self.poll_seconds = poll_seconds
+        self.timeout = timeout
+
+    def client(self):
+        if self._client is None:
+            from repro_torch.core.warpsim import service as service_mod
+            self._client = service_mod.SweepClient(self.url,
+                                                   timeout=self.timeout)
+        return self._client
+
+    def run(self, study: Study, session: "Session") -> StudyResult:
+        from repro_torch.core.warpsim import work_queue as wq_mod
+        client = self.client()
+        job = client.enqueue(study.to_spec(), chunk_size=self.chunk_size,
+                             lease_seconds=self.lease_seconds)
+        # Drain against the whole fleet, starting with the endpoint that
+        # took the enqueue (for a ResilientClient, last_url).
+        worker_urls = [getattr(client, "last_url", None) or self.url]
+        for u in getattr(client, "urls", ()):
+            if u not in worker_urls:
+                worker_urls.append(u)
+        computed = wq_mod.run_worker(
+            worker_urls, job["job"], worker_id=self.worker_id,
+            engine=study.engine, device=session.device,
+            poll_seconds=self.poll_seconds, timeout=self.timeout)
+        res = client.study(study)       # every cell now a daemon cache hit
+        stats = dict(res.stats, queue_job=job["job"],
+                     queue_cells_computed=computed)
+        return StudyResult(records=res.records, stats=stats,
+                           backend=self.name)
+
+
+# ---------------------------------------------------------------------------
+# Session: owns the cache stack, runs studies
+# ---------------------------------------------------------------------------
+
+
 class Session:
-    """Runs studies in this process on one `device`, over its own cache
-    stack.
+    """Runs studies through its `backend` (in this process unless given),
+    on one `device`, over its own cache stack.
 
     `cache_dir` (or an explicit `result_cache`) adds the on-disk cell
     cache; with `persist_traces` ThreadTrace snapshots land under
     ``<cache root>/traces/``. The trace and expansion LRUs are instance
     state (fresh, bounded ones unless given): studies and cells run
     through one session share traces and streams; two sessions share
-    nothing but the disk.
+    nothing but the disk. `device` is where this process computes: the
+    in-process backend's studies, :meth:`cell`, and the cells a
+    :class:`QueueBackend` drains.
     """
 
     def __init__(self, device="cuda", cache_dir: Optional[str] = None,
                  result_cache: Optional[sweep_mod.ResultCache] = None,
                  trace_cache: Optional[sweep_mod.TraceCache] = None,
                  expansion_cache: Optional[sweep_mod.ExpansionCache] = None,
-                 persist_traces: bool = False):
+                 persist_traces: bool = False,
+                 backend: Optional[Backend] = None):
         self.device = device
+        self.backend = backend if backend is not None else InProcessBackend()
         if result_cache is None and cache_dir:
             result_cache = sweep_mod.ResultCache(cache_dir)
         self.result_cache = result_cache
@@ -282,18 +453,19 @@ class Session:
             return os.path.join(self.result_cache.root, "traces")
         return None
 
-    def run(self, study) -> StudyResult:
-        """Run a :class:`Study` (or a :class:`SweepSpec`)."""
+    def run(self, study, backend: Optional[Backend] = None) -> StudyResult:
+        """Run a :class:`Study` (or a :class:`SweepSpec`) through `backend`
+        (default: the session's).
+
+        Every run is one trace: remote backends propagate its id over the
+        ``X-Warpsim-Op`` header, so a study's hops across daemons
+        reassemble from their ``/debug/trace`` dumps.
+        """
         if isinstance(study, sweep_mod.SweepSpec):
             study = Study.from_spec(study)
-        spec = study.to_spec()
-        results, stats = sweep_mod.run_sweep_with_stats(
-            spec, cache=self.result_cache, device=self.device,
-            engine=study.engine, persist_traces=self.persist_traces,
-            trace_cache=self.trace_cache,
-            expansion_cache=self.expansion_cache)
-        return StudyResult(records=records_from_grid(spec, results),
-                           stats=stats)
+        b = backend if backend is not None else self.backend
+        with obs_mod.start_trace("study", backend=b.name):
+            return b.run(study, self)
 
     def cell(self, bench: str, machine, n_threads: Optional[int] = None,
              seed: int = 0, engine: str = "auto") -> SimResult:
@@ -341,3 +513,72 @@ class Session:
                 "corrupt": self.result_cache.corrupt,
             }
         return out
+
+    @classmethod
+    def from_env(cls, cache_dir: Optional[str] = None,
+                 persist_traces: bool = False, device="cuda") -> "Session":
+        """The environment-driven session (figure generation).
+
+        ``WARPSIM_BACKEND`` forces a backend (``inprocess`` | ``service``
+        | ``queue``; the remote two require ``WARPSIM_SERVICE_URLS`` — a
+        comma-separated fleet, served through a failover
+        ``ResilientClient`` — or single-daemon ``WARPSIM_SERVICE_URL``,
+        and raise when both are absent or everything is dead). Unset, a
+        live fleet/daemon from those variables is preferred (probed via
+        ``service.from_env``, which warns once per process on a dead URL)
+        with a fall back to an in-process session over `cache_dir` on
+        `device`. The reference's rules, on the port's clients.
+        """
+        from repro_torch.core.warpsim import service as service_mod
+        choice = (envcfg.get(ENV_BACKEND) or "").strip().lower() or None
+        if choice in ("inprocess", "in-process", "local"):
+            return cls(device=device, cache_dir=cache_dir,
+                       persist_traces=persist_traces)
+        if choice in ("queue", "service"):
+            fleet = (envcfg.get(service_mod.ENV_URLS) or "").strip()
+            url = envcfg.get(service_mod.ENV_URL)
+            if not fleet and not url:
+                raise ValueError(
+                    f"{ENV_BACKEND}={choice} requires {service_mod.ENV_URL} "
+                    f"or {service_mod.ENV_URLS}")
+            try:
+                if fleet:
+                    client = service_mod.ResilientClient(fleet)
+                else:
+                    client = service_mod.SweepClient(url)
+                client.healthz()
+            except ServiceError as e:
+                var, val = ((service_mod.ENV_URLS, fleet) if fleet
+                            else (service_mod.ENV_URL, url))
+                raise RuntimeError(
+                    f"{ENV_BACKEND}={choice} but no live daemon at "
+                    f"{var}={val!r} "
+                    f"({e.__class__.__name__}: {e})") from e
+            backend = (QueueBackend(client=client) if choice == "queue"
+                       else ServiceBackend(client=client))
+            return cls(device=device, backend=backend)
+        if choice is not None:
+            raise ValueError(
+                f"{ENV_BACKEND}={choice!r}: expected inprocess | service "
+                f"| queue")
+        client = service_mod.from_env()
+        if client is not None:
+            return cls(device=device, backend=ServiceBackend(client=client))
+        return cls(device=device, cache_dir=cache_dir,
+                   persist_traces=persist_traces)
+
+
+_DEFAULT_LOCK = threading.Lock()
+_DEFAULT_SESSION: Optional[Session] = None
+
+
+def default_session() -> Session:
+    """The process-wide in-process session on the card: one set of
+    trace/expansion LRUs shared by the callers that use it. New code
+    should build its own :class:`Session` (or :meth:`Session.from_env`).
+    """
+    global _DEFAULT_SESSION
+    with _DEFAULT_LOCK:
+        if _DEFAULT_SESSION is None:
+            _DEFAULT_SESSION = Session()
+        return _DEFAULT_SESSION

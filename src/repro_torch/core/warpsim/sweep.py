@@ -52,6 +52,7 @@ import numpy as np
 
 from repro_torch.core.warpsim import _cuda
 from repro_torch.core.warpsim import machines as machines_mod
+from repro_torch.core.warpsim import obs as obs_mod
 from repro_torch.core.warpsim.config import MachineConfig
 from repro_torch.core.warpsim.divergence import (
     WarpStream, aggregate_stream, build_thread_trace, expand_stream,
@@ -584,13 +585,25 @@ def compute_cell(bench: str, cfg: MachineConfig,
                  ) -> SimResult:
     """Simulate one grid cell (a one-unit family launch) through the
     trace/expansion LRUs (fresh ones when omitted), with trace snapshots
-    under `trace_dir` when given."""
+    under `trace_dir` when given.
+
+    The cell-at-a-time path of the sweep service, its queue workers and
+    ``api.Session.cell``. Its stages are timed into the ambient
+    observability domain under the reference's names (``trace_build``,
+    ``aggregate``, ``engine``).
+    """
     tcache = TraceCache() if trace_cache is None else trace_cache
     ecache = ExpansionCache() if expansion_cache is None else expansion_cache
     wl = get_workload(bench, n_threads=n_threads, seed=seed)
-    stream = ecache.get(wl, cfg,
-                        trace_fn=lambda: tcache.get(wl, root=trace_dir))
-    return simulate(wl.name, stream, cfg, engine=engine, device=device)
+
+    def build_trace():
+        with obs_mod.stage("trace_build", bench=wl.name):
+            return tcache.get(wl, root=trace_dir)
+
+    with obs_mod.stage("aggregate", bench=bench):
+        stream = ecache.get(wl, cfg, trace_fn=build_trace)
+    with obs_mod.stage("engine", engine=engine, bench=bench):
+        return simulate(wl.name, stream, cfg, engine=engine, device=device)
 
 
 def run_sweep(spec: SweepSpec, cache: Optional[ResultCache] = None,

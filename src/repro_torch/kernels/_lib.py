@@ -11,6 +11,7 @@ CUDA cores, by dtype) also counts the route it launched.
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
 
@@ -31,34 +32,43 @@ SOURCES = {"gather_rows_kernel": "coalesced_gather.cu",
            "ssd_scan_kernel": "ssd_scan.cu"}
 KERNELS = tuple(SOURCES)
 
-_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
-_ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}
-_LIBS: Dict[str, ctypes.CDLL] = {}
+# Counts and libraries may be reached from several threads at once: every
+# update takes its lock, and a library is built and bound by one thread.
+_COUNT_LOCK = threading.Lock()
+_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}  # guarded-by: _COUNT_LOCK
+_ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}  # guarded-by: _COUNT_LOCK
+_LIBS_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}  # guarded-by: _LIBS_LOCK
 
 _nvcc = nvcc_build.find_nvcc
 
 
 def launch_count(kernel: str) -> int:
     """Launches of `kernel` (one of :data:`KERNELS`) since the last reset."""
-    return _LAUNCHES[kernel]
+    with _COUNT_LOCK:
+        return _LAUNCHES[kernel]
 
 
 def route_count(kernel: str, route: str) -> int:
     """Launches of `kernel` by `route` (``"tensor_cores"`` or
     ``"cuda_cores"``, as the wrapper names it) since the last reset."""
-    return _ROUTE_LAUNCHES.get((kernel, route), 0)
+    with _COUNT_LOCK:
+        return _ROUTE_LAUNCHES.get((kernel, route), 0)
 
 
 def reset_launch_counts() -> None:
-    for name in KERNELS:
-        _LAUNCHES[name] = 0
-    _ROUTE_LAUNCHES.clear()
+    with _COUNT_LOCK:
+        for name in KERNELS:
+            _LAUNCHES[name] = 0
+        _ROUTE_LAUNCHES.clear()
 
 
 def count_launch(kernel: str, route: Optional[str] = None) -> None:
-    _LAUNCHES[kernel] += 1
-    if route is not None:
-        _ROUTE_LAUNCHES[(kernel, route)] = route_count(kernel, route) + 1
+    with _COUNT_LOCK:
+        _LAUNCHES[kernel] += 1
+        if route is not None:
+            key = (kernel, route)
+            _ROUTE_LAUNCHES[key] = _ROUTE_LAUNCHES.get(key, 0) + 1
 
 
 def build(kernel: str) -> str:
@@ -73,12 +83,16 @@ def library(kernel: str, bind: Callable[[ctypes.CDLL], None]
     """`kernel`'s library, built and loaded at first use; `bind` declares
     its functions' argument and result types."""
     lib = _LIBS.get(kernel)
-    if lib is None:
-        lib = ctypes.CDLL(build(kernel))
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        bind(lib)
-        _LIBS[kernel] = lib
+    if lib is not None:
+        return lib
+    with _LIBS_LOCK:
+        lib = _LIBS.get(kernel)
+        if lib is None:
+            lib = ctypes.CDLL(build(kernel))
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            bind(lib)
+            _LIBS[kernel] = lib
     return lib
 
 

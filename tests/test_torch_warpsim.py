@@ -129,6 +129,9 @@ sys.meta_path.insert(0, Block())
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     __import__(m.name)
+# The service stack's modules, by name: each must be there and import.
+for name in ("envcfg", "obs", "faults", "mesh", "work_queue", "service"):
+    __import__("repro_torch.core.warpsim." + name)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not bad, bad
