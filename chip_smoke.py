@@ -141,6 +141,30 @@
    launches a call) at the kernel-bench shape and at ``mamba2-780m``'s
    width, with each launch's share.
 
+17. Trains on the card (the training slice; no kernel of the port is on
+   this path, as no Pallas kernel is on the reference's: every count
+   stays 0). (a) One smoke arch per family (``tinyllama``, ``qwen2-moe``
+   with LW+ dispatch, ``mamba2-780m``, ``hymba-1.5b``), float32: three
+   train steps from the same numpy-drawn weights on the card and on the
+   host CPU, losses and grad norms within rtol 1e-4. (d) K4 through
+   ``kernels.ops.moe_gmm`` on card tensors that require grad raises
+   ``NotImplementedError`` (no kernel has a backward, as ``pallas_call``
+   has none). (b) The reference's kill/resume drill (18 steps, a
+   checkpoint every 6, a failure at 12) through ``launch.train`` on
+   ``tinyllama-1.1b`` at full width and 2 layers (bf16, ``remat="dots"``,
+   checkpoints of 1.6 GB under ``build/``, removed after): the resumed
+   losses equal the uninterrupted run's bit for bit. (c) ``python -m
+   repro_torch.launch.train --arch tinyllama-1.1b --steps 6 --batch 8
+   --seq-len 2048 --accum 2`` in process (22 layers, d_model 2048, bf16,
+   ``remat="dots"``, 1.1 B parameters from seed 0), with the launch counts
+   set to 0 just before and read just after: finite losses, the median
+   step wall of steps 2-5, tokens/s and peak memory; then one step of a
+   fresh state of the same run traced: wall, device busy, idle share,
+   device time by group (float32 GEMMs, other GEMMs, the rest), the
+   step's products' operations (``train_smoke.step_flops``): the bound
+   from the attention's causal keys only, the port's padded count beside
+   it with the achieved rates, and the top device operations.
+
 Prints one JSON object of kernel records on the line before the last and
 ``{"ok": true, "device": ...}`` as the last line. Exits non-zero, printing
 no result, without a CUDA device, outside a checkout, or on any mismatch.
@@ -1569,6 +1593,109 @@ def k5_k6_timing(torch, flash_cases, ssd_cases, card):
     return rows
 
 
+def train_phase(torch, dev, card):
+    """Step 17: the training path on the card (`repro_torch.benchmarks.
+    train_smoke`'s checks; each raises AssertionError on a failure)."""
+    from repro_torch import kernels
+    from repro_torch.benchmarks import train_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as train_steps
+
+    t_phase = time.perf_counter()
+    for arch in train_smoke.SMOKE_ARCHS:
+        out = train_smoke.check_smoke_steps(arch, dev)
+        print(f"train smoke {arch} (float32, 3 steps, card vs host CPU, "
+              f"rtol {train_smoke.SMOKE_RTOL}): losses "
+              f"{out['device']['loss']} / {out['cpu']['loss']}, grad norms "
+              f"{out['device']['grad_norm']} / {out['cpu']['grad_norm']}")
+    train_smoke.check_autograd_guard(dev)
+    print("autograd guard: kernels.ops.moe_gmm on a card tensor that "
+          "requires grad raised NotImplementedError; under torch.no_grad() "
+          "it launched K4")
+
+    stamp("training: the kill/resume drill at full width, 2 layers")
+    drill_cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=2)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    t0 = time.perf_counter()
+    out = train_smoke.drill(drill_cfg, dev, os.path.join(ROOT, "build"))
+    print(f"kill/resume drill ({drill_cfg.name}, {drill_cfg.n_layers} "
+          f"layers, full width, {drill_cfg.dtype}, remat "
+          f"{drill_cfg.remat}): resumed losses == uninterrupted steps "
+          f"12-17 bit for bit: {out['resumed']}; three runs "
+          f"{time.perf_counter() - t0:.3f} s [{card}]")
+
+    stamp("training: tinyllama-1.1b at full width")
+    cfg = get_config("tinyllama-1.1b")
+    kernels.reset_launch_counts()
+    res = train_smoke.full_width_run(dev)
+    launches = {k: kernels.launch_count(k) for k in kernels.KERNELS}
+    if any(launches.values()):
+        fail(f"the training path launched LM kernels: {launches}")
+    n_params = sum(t.numel() for t in _leaves(
+        train_steps.state_struct(cfg)["params"]))
+    print(f"full-width training: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv_heads} stored "
+          f"as {cfg.n_kv_eff}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}, remat {cfg.remat}, {n_params / 1e9:.3f} B "
+          f"parameters; 6 steps of 8 x 2048 tokens (--accum 2); launches "
+          f"{launches}")
+    print(f"  losses {res['losses']} (finite)")
+    print(f"  step walls (s) {[round(x, 4) for x in res['step_s']]}")
+    print(f"train step wall, median of steps 2-5: {res['step_wall_s']:.4f} "
+          f"s; {res['tokens_per_s']:.1f} tokens/s [{card}]")
+    print(f"train peak memory: {res['peak_bytes'] / 1e9:.3f} GB "
+          f"(max_memory_allocated) [{card}]")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = train_smoke.traced_step(dev)
+    t_wall, parts = profiled_run(torch, step)
+    busy = sum(parts.values())
+    if busy <= 0:
+        fail("torch.profiler recorded no device time for the train step")
+    print(f"traced train step: wall {1e3 * t_wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / (1e3 * t_wall):.4f} (both "
+          f"from this step, under torch.profiler) [{card}]")
+    groups = {"float32 GEMMs (attention einsums, TF32 off)": 0.0,
+              "other GEMMs (bf16 projections, lm head)": 0.0,
+              "elementwise, reductions, copies": 0.0}
+    names = list(groups)
+    for key, ms in parts.items():
+        low = key.lower()
+        gemm = any(w in low for w in ("gemm", "nvjet", "cutlass"))
+        groups[names[0] if gemm and "f32f32" in low
+               else names[1] if gemm else names[2]] += ms
+    for name, ms in groups.items():
+        print(f"  {name}: {ms:.3f} ms ({ms / busy:.4f} of busy)")
+    work = train_smoke.step_flops(cfg, 8, 2048)
+
+    def rate(flops, ms):
+        return (f"{flops / ms / 1e9:.1f} TFLOP/s" if ms > 0
+                else "not measured (no device record in the group)")
+
+    proj_ms = 1e3 * work["projections"] / PEAK_BF16_OPS_PER_S
+    bound = proj_ms + 1e3 * work["attention"] / PEAK_FP32_OPS_PER_S
+    padded = proj_ms + 1e3 * work["attention_computed"] / PEAK_FP32_OPS_PER_S
+    print(f"  work a step (train_smoke.step_flops): projections and lm head "
+          f"{work['projections']:.4e} FLOP (bf16), attention "
+          f"{work['attention']:.4e} FLOP (float32, causal keys only); bound "
+          f"{bound:.3f} ms at 67 / 989 TFLOP/s; device busy "
+          f"{busy / bound:.3f}x the bound")
+    print(f"  as the port computes it: attention einsums "
+          f"{work['attention_computed']:.4e} FLOP (every KV chunk in full, "
+          f"masked keys included), {padded:.3f} ms at the same rates "
+          f"(busy {busy / padded:.3f}x); float32 GEMMs "
+          f"{rate(work['attention_computed'], groups[names[0]])}, other "
+          f"GEMMs {rate(work['projections'], groups[names[1]])}")
+    print("  top device records:")
+    for key, ms in sorted(parts.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms:10.3f} ms  {key[:70]}")
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"training phase: {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1937,6 +2064,8 @@ def main() -> None:
     kb_launches = kernel_bench_path(torch, dev, card, err)
     stamp("K5/K6 timing")
     rows.update(k5_k6_timing(torch, flash_cases, ssd_cases, card))
+    stamp("training: smoke steps against the host CPU, the autograd guard")
+    train_phase(torch, dev, card)
     stamp("done")
     del flash_cases, ssd_cases
     for name in ("flash_attention_kernel", "ssd_scan_kernel"):

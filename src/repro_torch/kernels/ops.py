@@ -5,6 +5,14 @@
 launches K3 at every size: the Hopper kernel reads rows straight from
 device memory, so the reference's VMEM budget and its XLA fallback have no
 counterpart here. ``moe_gmm`` launches K4, ``flash_attention`` K5 and ``ssd_scan`` K6.
+
+No kernel has a backward: the reference cannot differentiate its
+``pallas_call`` (``jax.grad`` through it raises), and the port's kernels
+are bound with ctypes, so their outputs would carry no ``grad_fn`` and
+every gradient through them would be lost without a word. Each wrapper
+raises ``NotImplementedError`` instead when autograd records and any
+input requires grad, on the CPU and the card alike. The serve runs under
+``torch.no_grad()``; the kernel bench's inputs do not require grad.
 """
 
 from __future__ import annotations
@@ -19,12 +27,24 @@ from repro_torch.kernels import moe_gmm as _gmm_k
 from repro_torch.kernels import ssd_scan as _ssd_k
 
 
+def _no_backward(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise NotImplementedError if autograd would need `kernel`'s
+    backward."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} has no backward (as the reference's pallas_call has "
+            f"no transpose rule): call it under torch.no_grad() or on "
+            f"tensors that do not require grad")
+
+
 def moe_gmm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
             block: int = 128, n_rows: Optional[torch.Tensor] = None
             ) -> torch.Tensor:
     """Grouped matmul over BM-aligned expert groups; rows at or past
     ``n_rows`` (a device int32 scalar, ``None`` for every row) are zero
     and their row blocks are skipped."""
+    _no_backward("moe_gmm", x, w)
     return _gmm_k.gmm(x, w, block_expert.to(torch.int32), bm=block,
                       n_rows=n_rows)
 
@@ -49,15 +69,16 @@ def coalesced_gather(x: torch.Tensor, src: torch.Tensor, dest: torch.Tensor,
     by row and does not need it.
     """
     del block
+    _no_backward("coalesced_gather", x)
     row_src, row_valid = row_maps(src, dest, t_pad)
     return _gather_k.gather_rows(x, row_src, row_valid, t_pad)
-
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, bq: int = 128,
                     bkv: int = 128) -> torch.Tensor:
     """(BH, S, hd) flash attention with (BQ, BKV) tile granularity."""
+    _no_backward("flash_attention", q, k, v)
     return _flash_k.flash_attention(q, k, v, causal=causal, bq=bq, bkv=bkv)
 
 
@@ -65,4 +86,5 @@ def ssd_scan(xdt: torch.Tensor, da: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, chunk: int = 128) -> torch.Tensor:
     """Mamba2 SSD chunked scan: one block of the kernel per (bh, chunk),
     the state handed on from chunk to chunk through a float32 scratch."""
+    _no_backward("ssd_scan", xdt, da, b, c)
     return _ssd_k.ssd_scan_kernel(xdt, da, b, c, chunk=chunk)

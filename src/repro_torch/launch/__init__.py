@@ -1,1 +1,1 @@
-"""Serving driver of the port."""
+"""Serving and training drivers of the port, and their step builders."""

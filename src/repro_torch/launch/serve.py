@@ -109,7 +109,10 @@ class BatchedServer:
         self.slot_pos[slot] = len(req.prompt)
         return int(torch.argmax(logits[0]))
 
+    @torch.no_grad()
     def run(self, requests: List[Request]) -> dict:
+        """Serve `requests` to the end. Runs without autograd, so weights
+        that require grad (after training) serve as they are."""
         queue = list(requests)
         next_tokens = np.zeros(self.slots, dtype=np.int32)
         t0 = time.perf_counter()

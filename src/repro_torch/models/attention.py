@@ -19,6 +19,8 @@ from repro_torch.models.common import Init
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -2.0e38
+#: KV rows a step of the online softmax takes (the reference's default).
+KV_CHUNK = 1024
 
 
 def attn_init(init: Init, cfg: ModelConfig, dtype: torch.dtype) -> dict:
@@ -75,7 +77,7 @@ def _finish(params: dict, out: torch.Tensor, cfg: ModelConfig
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_positions: torch.Tensor, k_positions: torch.Tensor,
-                    window: Optional[int], kv_chunk: int = 1024
+                    window: Optional[int], kv_chunk: int = KV_CHUNK
                     ) -> torch.Tensor:
     """Online-softmax attention over KV chunks.
 
@@ -129,7 +131,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
-              cfg: ModelConfig, kv_chunk: int = 1024) -> torch.Tensor:
+              cfg: ModelConfig, kv_chunk: int = KV_CHUNK) -> torch.Tensor:
     """Full causal self-attention block (prefill). x: (B,S,D)."""
     q, k, v = _project_qkv(params, x, positions, cfg)
     out = flash_attention(q, k, v, positions, positions,

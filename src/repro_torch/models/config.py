@@ -2,8 +2,8 @@
 
 One dataclass describes dense / MoE / SSM / hybrid decoder LMs plus the
 stubbed audio/VLM frontends. Per-arch instances live in
-``repro_torch.configs``. ModelConfig and pad_to are copied from the
-reference's ``repro.models.config`` (its ShapeConfig grid is not needed):
+``repro_torch.configs``. ModelConfig, pad_to and ShapeConfig (with its
+grid, ``SHAPES``) are copied from the reference's ``repro.models.config``:
 the tests hold every field and derived property equal to it.
 
 Tensor-parallel divisibility: production meshes use a 16-way ``model`` axis.
@@ -23,7 +23,7 @@ roofline "useful-FLOPs" ratio (DESIGN.md §3).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def pad_to(x: int, m: int) -> int:
@@ -147,3 +147,31 @@ class ModelConfig:
             assert self.moe_experts_eff % max(tp, 1) == 0
         return self
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell of the evaluation grid."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(f"unknown shape {name!r}; have {[s.name for s in SHAPES]}")

@@ -11,15 +11,21 @@ numpy arrays:
   parameters, as numpy arrays) into the port's, on a device, each leaf
   cast to the dtype the port keeps it in (the router and the SSM's
   ``A_log``, ``D`` and ``dt_bias`` float32, the rest the config's dtype).
+* :func:`param_struct` gives that tree's shapes and dtypes as ``meta``
+  tensors, which hold no memory (what a checkpoint is restored into).
+* :func:`opt_from_numpy` and :func:`opt_to_numpy` carry AdamW's state,
+  the reference's ``{"m", "v", "step"}``, into the port and back out.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 
@@ -114,11 +120,50 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         if tuple(np.shape(node)) != spec:
             raise ValueError(f"{path}: shape {tuple(np.shape(node))}, "
                              f"expected {spec}")
-        leaf_dt = (torch.float32 if path.rsplit("/", 1)[-1]
-                   in FLOAT32_LEAVES else dt)
-        return _to_tensor(node, leaf_dt, dev)
+        return _to_tensor(node, _leaf_dtype(path, dt), dev)
 
     return conv(tree, want, "")
+
+
+def _leaf_dtype(path: str, dt: torch.dtype) -> torch.dtype:
+    return torch.float32 if path.rsplit("/", 1)[-1] in FLOAT32_LEAVES else dt
+
+
+def param_struct(cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's parameter tree for `cfg` as ``meta`` tensors: the shapes
+    and dtypes of ``model.init_params``, without memory."""
+    dt = model_lib.param_dtype(cfg)
+
+    def conv(node, path):
+        if isinstance(node, dict):
+            return {k: conv(v, f"{path}/{k}") for k, v in node.items()}
+        return torch.empty(node, dtype=_leaf_dtype(path, dt), device="meta")
+
+    return conv(_shapes(cfg), "")
+
+
+def opt_from_numpy(opt: Dict[str, Any], cfg: ModelConfig,
+                   device="cuda") -> Dict[str, Any]:
+    """AdamW's state in the port from the reference's as numpy
+    (``{"m": tree, "v": tree, "step": scalar}``): float32 moments and an
+    int32 step on `device`. Raises ValueError on a shape that `cfg` does
+    not have."""
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    dev = model_lib.resolve_device(device)
+    return {"m": params_from_numpy(opt["m"], f32, dev),
+            "v": params_from_numpy(opt["v"], f32, dev),
+            "step": torch.tensor(int(np.asarray(opt["step"])),
+                                 dtype=torch.int32, device=dev)}
+
+
+def opt_to_numpy(opt: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's AdamW state as the reference holds it, in numpy:
+    float32 moment trees and an int32 scalar step."""
+    def arr(t):
+        return t.detach().cpu().numpy()
+    return {"m": tree_lib.map_leaves(arr, opt["m"]),
+            "v": tree_lib.map_leaves(arr, opt["v"]),
+            "step": np.asarray(int(opt["step"]), dtype=np.int32)}
 
 
 class _ShapeInit:

@@ -1,4 +1,4 @@
-"""LM assembly: embedding, layers, logits, prefill, decode.
+"""LM assembly: embedding, layers, loss, logits, prefill, decode.
 
 The port of ``repro.models.model``. Families:
 
@@ -10,7 +10,17 @@ The port of ``repro.models.model``. Families:
 Parameters keep the reference's names and its stacked ``(L, ...)`` layer
 layout, so a tree of the reference's weights carries over leaf for leaf
 (``models.convert``); ``lax.scan`` over that axis becomes a Python loop
-over views of it. ``train_loss`` comes with the training slice.
+over views of it.
+
+``train_loss`` is differentiated by autograd. ``forward_hidden`` takes
+the layers with one ``torch.unbind`` per stacked leaf, whose backward
+stacks each leaf's gradient once (a ``v[i]`` per layer would back into a
+zero ``(L, ...)`` tensor per layer), and applies the config's remat
+policy per layer, as the reference's ``jax.checkpoint`` of its scan
+body does: ``"none"``, ``"full"`` (keep the layer's inputs, recompute
+the rest) or ``"dots"`` (also keep the outputs of the products without
+batch dimensions, ``aten.mm``: every projection; recompute the rest,
+the batched attention and expert products, ``aten.bmm``, included).
 
 Everything runs on the device the parameters lie on. Decode updates the
 cache it is given in place (the reference returns a new one), which
@@ -20,10 +30,12 @@ so callers read the same as in the reference.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
+from repro_torch import tree as tree_lib
 from repro_torch.models import attention, common, mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -130,10 +142,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
 
 def layer_params(params: dict, i: int) -> dict:
     """Views of layer `i` of the stacked ``params["layers"]`` tree."""
-    def pick(tree):
-        return {k: pick(v) if isinstance(v, dict) else v[i]
-                for k, v in tree.items()}
-    return pick(params["layers"])
+    return unstack_layers(params)[i]
+
+
+def unstack_layers(params: dict) -> List[dict]:
+    """Every layer of the stacked ``params["layers"]`` tree, one dict of
+    views per layer, from one ``torch.unbind`` per leaf."""
+    split = tree_lib.map_leaves(lambda v: torch.unbind(v, 0),
+                                params["layers"])
+    n_layers = len(tree_lib.leaves(split)[0])
+    return [tree_lib.map_leaves(lambda views: views[i], split)
+            for i in range(n_layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -168,14 +187,45 @@ def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
     return x + y, aux if a2 is None else a2
 
 
+#: Products whose outputs ``"dots"`` keeps: 2-D matmuls, the counterpart
+#: of JAX's dot_generals without batch dimensions.
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_BY_DOTS:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots():
+    return torch_checkpoint.create_selective_checkpoint_contexts(
+        _dots_policy)
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    """`fn` under the config's remat policy, when autograd records (any
+    other policy than ``"full"`` and ``"dots"`` is ``"none"``, as in the
+    reference)."""
+    if cfg.remat not in ("full", "dots") or not torch.is_grad_enabled():
+        return fn
+    extra = {"context_fn": _save_dots} if cfg.remat == "dots" else {}
+
+    def wrapped(*args):
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                           **extra)
+    return wrapped
+
+
 def forward_hidden(params: dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embedded input (B,S,D) -> final hidden (B,S,D), summed aux loss."""
     _check_family(cfg)
+    layer = _remat_wrap(_layer_fwd, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = _layer_fwd(layer_params(params, i), x, positions, cfg)
+    for lp in unstack_layers(params):
+        x, a = layer(lp, x, positions, cfg)
         aux = aux + a
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
@@ -205,6 +255,33 @@ def logits_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor
     pad = torch.arange(cfg.vocab_padded, device=hidden.device) >= \
         cfg.vocab_size
     return logits.masked_fill(pad[None, None, :], -1e9)
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+
+def train_loss(params: dict, cfg: ModelConfig, batch: dict,
+               aux_coeff: float = 0.01) -> Tuple[torch.Tensor, dict]:
+    """Mean next-token cross-entropy over the labels >= 0, plus the MoE
+    load-balance loss times `aux_coeff` over the layers. Returns (total,
+    {ce, aux, tokens}), 0-dim float32 tensors."""
+    x = embed_inputs(params, cfg, batch)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    hidden, aux = forward_hidden(params, cfg, x, positions)
+    logits = logits_fn(params, cfg, hidden)
+    labels = batch["labels"].long()
+    mask = (labels >= 0).float()
+    safe = torch.clamp_min(labels, 0)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    ce = nll.sum() / denom
+    total = ce + aux_coeff * aux / max(cfg.n_layers, 1)
+    return total, {"ce": ce, "aux": aux, "tokens": denom}
 
 
 # ---------------------------------------------------------------------------
@@ -273,8 +350,7 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int
         slots = torch.arange(s - keep, s, device=dev) % s_cache
 
     h = x
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+    for i, lp in enumerate(unstack_layers(params)):
         if cfg.family == "ssm":
             h = h + _ssm_prefill(lp, h, cfg, sc, i)
             continue
@@ -338,8 +414,7 @@ def decode_step(params: dict, cfg: ModelConfig,
     dt = param_dtype(cfg)
 
     h = x
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+    for i, lp in enumerate(unstack_layers(params)):
         if cfg.family == "ssm":
             h = h + _ssm_decode(lp, h, cfg, sc, i)
             continue

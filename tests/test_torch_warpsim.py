@@ -132,6 +132,11 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 # The service stack's modules, by name: each must be there and import.
 for name in ("envcfg", "obs", "faults", "mesh", "work_queue", "service"):
     __import__("repro_torch.core.warpsim." + name)
+# The training slice's modules, by name.
+for name in ("data.synthetic", "data.loader", "optim.adamw",
+             "checkpoint.ckpt", "runtime.fault", "runtime.straggler",
+             "launch.steps", "launch.train"):
+    __import__("repro_torch." + name)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not bad, bad
