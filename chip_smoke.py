@@ -165,6 +165,27 @@
    from the attention's causal keys only, the port's padded count beside
    it with the achieved rates, and the top device operations.
 
+18. The distribution layer (``repro_torch.benchmarks.dist_smoke``) on a
+   world of one rank (NCCL, a (1, 1) mesh; no kernel of the port is on
+   its path: the expert-parallel layer's grouped matmul is the
+   reference's plain block-gather product). (a) ``tinyllama-1.1b`` at
+   full width (8 x 2048, ``--accum 2``): four steps through
+   ``steps.build_step(..., layout="tp")`` against four of the plain step
+   from the same seed and batches: losses and grad norms bit for bit,
+   and the step wall and peak memory of both, the mesh's within 5 % of
+   the plain step's. (c) ``compressed_psum_grads`` over the NCCL group
+   on a gradient of (a)'s state: every leaf equal to
+   ``dequantize(quantize(g))``. (d) ``elastic.recover`` of a saved state
+   (full width, 2 layers, after one mesh step) onto a rebuilt (1, 1)
+   mesh: bit for bit. (b) ``qwen2-moe-a2.7b`` at full width: one MoE
+   layer in float32 on 2,048 tokens through ``sw_plus_ep_layer``
+   against ``dispatch_dense_oracle`` and against ``dispatch_sw_plus``
+   on K3 + K4 (rtol 1e-4, atol 1e-5); then three ``swep`` train steps
+   at 2 layers, bf16, 4 x 512 tokens: finite losses, step wall, tokens/s
+   and peak memory. (e) ``seq_sharded_decode_attention`` at B 8, Sc
+   4096, H 16, hd 128 with slots empty, against softmax attention (rtol
+   and atol 1e-5).
+
 Prints one JSON object of kernel records on the line before the last and
 ``{"ok": true, "device": ...}`` as the last line. Exits non-zero, printing
 no result, without a CUDA device, outside a checkout, or on any mismatch.
@@ -177,6 +198,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1696,6 +1718,102 @@ def train_phase(torch, dev, card):
     print(f"training phase: {time.perf_counter() - t_phase:.3f} s")
 
 
+def dist_phase(torch, dev, card):
+    """Step 18: the distribution layer on the card, a world of one rank
+    (NCCL), through ``repro_torch.benchmarks.dist_smoke``'s checks (each
+    raises AssertionError on a failure)."""
+    from repro_torch import kernels
+    from repro_torch.benchmarks import dist_smoke
+    from repro_torch.kernels import _lib as lm_lib
+
+    t_phase = time.perf_counter()
+    stamp("distribution (a): the full-width step through build_step")
+    out = dist_smoke.dense_step_check(dev)
+    cfg, args, p, m = out["cfg"], out["args"], out["plain"], out["mesh"]
+    print(f"distribution (a): {cfg.name} at full width ({cfg.n_layers} "
+          f"layers, {cfg.dtype}, remat {cfg.remat}), {args.batch} x "
+          f"{args.seq_len} tokens a step, --accum {args.accum}, "
+          f"{dist_smoke.DENSE_STEPS} steps each: build_step(layout='tp') on "
+          f"a (1, 1) NCCL mesh against the plain step, same seed and "
+          f"batches: losses {m['losses']} == {p['losses']} and grad norms "
+          f"{m['grad_norms']} == {p['grad_norms']} bit for bit")
+    for name, r in (("plain", p), ("mesh", m)):
+        print(f"  {name:5s} step wall (median of steps 1-"
+              f"{dist_smoke.DENSE_STEPS - 1}) {r['step_s']:.4f} s, "
+              f"{r['tokens_per_s']:.1f} tokens/s, peak "
+              f"{r['peak_bytes'] / 1e9:.3f} GB (max_memory_allocated); "
+              f"walls {[round(x, 4) for x in r['walls']]} [{card}]")
+    print(f"  mesh / plain: wall {m['step_s'] / p['step_s']:.4f}, peak "
+          f"{m['peak_bytes'] / p['peak_bytes']:.4f} (limit "
+          f"{1 + dist_smoke.SLACK:.2f})")
+    c = dist_smoke.compression_check(cfg, args, out["state"],
+                                     out["device_mesh"], out["get_batch"])
+    print(f"distribution (c): compressed_psum_grads over the NCCL 'data' "
+          f"group on a gradient of (a)'s state ({c['leaves']} leaves, "
+          f"{c['elements']} {c['dtype']} elements): every leaf == "
+          f"dequantize(quantize(g)) bit for bit")
+    del out, c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stamp("distribution (d): elastic recovery")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        d = dist_smoke.elastic_check(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"distribution (d): tinyllama-1.1b full width, 2 layers, after "
+          f"one mesh step: {d['leaves']} leaves, {d['bytes'] / 1e9:.3f} GB "
+          f"saved in {d['save_s']:.3f} s, elastic.recover onto a rebuilt "
+          f"(1, 1) mesh in {d['recover_s']:.3f} s: equal bit for bit "
+          f"[{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stamp("distribution (b): qwen2-moe-a2.7b's MoE layer and swep training")
+    k3, k4 = (kernels.launch_count(k) for k in ("gather_rows_kernel",
+                                                "gmm_kernel"))
+    k4_cc = lm_lib.route_count("gmm_kernel", "cuda_cores")
+    b = dist_smoke.moe_check(dev)
+    k3, k4 = (kernels.launch_count("gather_rows_kernel") - k3,
+              kernels.launch_count("gmm_kernel") - k4)
+    k4_cc = lm_lib.route_count("gmm_kernel", "cuda_cores") - k4_cc
+    if (k3, k4, k4_cc) != (1, 3, 3):
+        fail(f"distribution (b): dispatch_sw_plus launched K3 {k3}, K4 {k4} "
+             f"({k4_cc} on the CUDA cores), not 1 and 3")
+    mc, tc = b["cfg"], b["swep_cfg"]
+    print(f"distribution (b): {mc.name} at full width (d_model "
+          f"{mc.d_model}, {mc.moe_experts_eff} experts ({mc.moe_experts} "
+          f"real), top-{mc.moe_top_k}, moe_d_ff {mc.moe_d_ff}), one MoE "
+          f"layer, float32, {math.prod(dist_smoke.MOE_TOKENS)} tokens, "
+          f"capacity factor {dist_smoke.MOE_ORACLE_CF}: sw_plus_ep_layer vs "
+          f"dispatch_dense_oracle max abs err "
+          f"{b['max_abs_err_oracle']:.3e}, vs dispatch_sw_plus on K3 + K4 "
+          f"(K3 {k3}, K4 {k4} launches, cuda_cores) "
+          f"{b['max_abs_err_sw_plus']:.3e} (rtol "
+          f"{dist_smoke.EP_TOL[0]}, atol {dist_smoke.EP_TOL[1]})")
+    print(f"  swep training ({tc.n_layers} layers, the only cut; {tc.dtype}, "
+          f"remat {tc.remat}, {dist_smoke.SWEP_BATCH} x "
+          f"{dist_smoke.SWEP_SEQ} tokens): losses {b['swep_losses']} "
+          f"(finite); step wall (median of steps 1-"
+          f"{dist_smoke.SWEP_STEPS - 1}) {b['swep_step_s']:.4f} s, "
+          f"{b['swep_tokens_per_s']:.1f} tokens/s, peak "
+          f"{b['swep_peak_bytes'] / 1e9:.3f} GB; walls "
+          f"{[round(x, 4) for x in b['swep_walls']]} [{card}]")
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stamp("distribution (e): sequence-sharded decode")
+    e = dist_smoke.decode_check(dev)
+    print(f"distribution (e): seq_sharded_decode_attention "
+          f"{dist_smoke.DECODE_SHAPE} float32 vs softmax attention: max abs "
+          f"err {e['max_abs_err']:.3e} (rtol {dist_smoke.DECODE_TOL[0]}, "
+          f"atol {dist_smoke.DECODE_TOL[1]})")
+    print(f"distribution phase: {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2066,6 +2184,7 @@ def main() -> None:
     rows.update(k5_k6_timing(torch, flash_cases, ssd_cases, card))
     stamp("training: smoke steps against the host CPU, the autograd guard")
     train_phase(torch, dev, card)
+    dist_phase(torch, dev, card)
     stamp("done")
     del flash_cases, ssd_cases
     for name in ("flash_attention_kernel", "ssd_scan_kernel"):

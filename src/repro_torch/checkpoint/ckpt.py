@@ -19,7 +19,14 @@ the target's dtype rather than casting it.
 ``AsyncCheckpointer`` snapshots the tree to host memory synchronously
 (cheap) and writes in a background thread, so training never blocks on
 disk. ``restore`` fills a target tree of shapes and dtypes — tensors on
-the ``meta`` device, which hold no memory — onto a device.
+the ``meta`` device, which hold no memory — onto a device, and with a
+mesh and placements lays each leaf out as a DTensor (each rank keeps its
+shard).
+
+A state of DTensors on a mesh of several ranks is saved as the
+reference saves a sharded state on one host: the full arrays, gathered
+on every rank (a collective: every rank calls ``save``) and written by
+rank 0 alone.
 """
 
 from __future__ import annotations
@@ -33,7 +40,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import sharding
 from repro_torch import tree as tree_lib
 
 _BF16_BITS = np.dtype("V2")     # how np.savez stores a bfloat16 array
@@ -49,7 +58,7 @@ def to_numpy(t) -> np.ndarray:
     the tensor in place."""
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
-    t = t.detach().to("cpu", copy=True)
+    t = sharding.full_tensor(t.detach()).to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(_BF16_BITS)
     return t.numpy()
@@ -59,16 +68,23 @@ def _dtype_name(a: np.ndarray) -> str:
     return "bfloat16" if a.dtype == _BF16_BITS else str(a.dtype)
 
 
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0, or a process
+    with no process group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(path: str, step: int, tree: Any, keep: int = 3) -> str:
-    """Synchronous atomic save. Returns the final directory."""
-    flat = _flatten(tree)
+    """Synchronous atomic save. Returns the final directory. With a
+    process group, every rank calls it and rank 0 writes."""
+    arrays = {k: to_numpy(v) for k, v in _flatten(tree).items()}
     final = os.path.join(path, f"step_{step:08d}")
+    if not _writer():
+        return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
-
-    arrays = {k: to_numpy(v) for k, v in flat.items()}
     np.savez(os.path.join(tmp, "host_0.npz"), **arrays)
     manifest = {
         "step": step,
@@ -120,10 +136,12 @@ def _to_tensor(leaf: np.ndarray, want: torch.dtype, device) -> torch.Tensor:
 
 
 def restore(path: str, target: Any, step: Optional[int] = None,
-            device=None) -> Any:
+            device=None, mesh=None, placements=None) -> Any:
     """Restore into the structure of `target` (a tree of tensors, or of
     ``meta`` tensors that only give shapes and dtypes), each leaf cast to
-    the target's dtype and put on `device` (default: the CPU)."""
+    the target's dtype and put on `device` (default: the CPU); with
+    `mesh`, as DTensors with the tree of `placements` (the reference's
+    ``shardings``)."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -142,7 +160,10 @@ def restore(path: str, target: Any, step: Optional[int] = None,
                                  f"{leaf.shape}, the target "
                                  f"{tuple(want.shape)}")
             pairs.append((tpath, _to_tensor(leaf, want.dtype, device)))
-    return tree_lib.unflatten(pairs)
+    tree = tree_lib.unflatten(pairs)
+    if mesh is not None:
+        tree = sharding.distribute_tree(tree, mesh, placements)
+    return tree
 
 
 class AsyncCheckpointer:
@@ -166,6 +187,8 @@ class AsyncCheckpointer:
         self.wait()
         # Snapshot to host synchronously (device buffers mutate next step).
         host_tree = tree_lib.map_leaves(to_numpy, tree)
+        if not _writer():
+            return
 
         def _work():
             try:

@@ -1,7 +1,7 @@
 """Step-function builders shared by train / serve.
 
 The port of ``repro.launch.steps``: closures for the three step kinds
-and their input structures, per (arch config x shape). No device
+and their input structures, per (arch config x shape x mesh). No device
 allocation happens here — the state, batch and cache structures are
 ``meta`` tensors, which hold shapes and dtypes and no memory (the
 reference's ``jax.eval_shape``).
@@ -9,17 +9,36 @@ reference's ``jax.eval_shape``).
 The train step differentiates ``model.train_loss`` with autograd
 (:func:`loss_and_grads`, the reference's ``jax.value_and_grad``) and
 applies AdamW, which updates the state in place (the reference's jitted
-step donates it). The reference's ``build_step`` adds shardings over a
-device mesh; it waits for the port's distribution slice.
+step donates it).
+
+:func:`build_step` adds a device mesh, as the reference's does with
+GSPMD shardings. The state is stored as DTensors in the reference's
+layouts (``sharding.param_specs``): each rank holds its shard of every
+parameter and AdamW moment. A step gathers every parameter and computes
+with the plain model on the rank's rows of the batch (ZeRO-3 storage with
+gathered compute: the reference's math, not its per-layer collectives).
+Each rank's loss is its share of the global mean (its cross-entropy sum
+over the token count of the whole mesh), so the ranks' gradients sum to
+the gradient of the global loss: they leave as ``Partial`` over every
+mesh axis and are redistributed to each parameter's placements (a
+reduce-scatter), where AdamW updates the local shards; the gradient norm
+is global. On a mesh of one rank every redistribution is the identity,
+and the step is the plain step's operations.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
-import torch
+import dataclasses
 
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+
+from repro_torch import sharding
 from repro_torch import tree as tree_lib
+from repro_torch.core import granularity
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import convert
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig, ShapeConfig
@@ -59,16 +78,17 @@ def cache_struct(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
                                        shape.seq_len, device="meta")
 
 
-def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict
-                   ) -> Tuple[torch.Tensor, dict, dict]:
+def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict,
+                   **share) -> Tuple[torch.Tensor, dict, dict]:
     """``jax.value_and_grad(train_loss, has_aux=True)``: (loss, metrics,
     grads), the loss and metrics detached, the grads a tree of the
     parameters' shape and dtypes (zeros where a leaf is unused). Marks
-    every parameter as requiring grad."""
+    every parameter as requiring grad. `share` goes to
+    ``model.train_loss`` (``tokens``, ``aux_weight``)."""
     flat = tree_lib.flatten(params)
     for _, p in flat:
         p.requires_grad_(True)
-    loss, metrics = model_lib.train_loss(params, cfg, batch)
+    loss, metrics = model_lib.train_loss(params, cfg, batch, **share)
     grads = torch.autograd.grad(loss, [p for _, p in flat],
                                 allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
@@ -76,6 +96,32 @@ def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_lib.unflatten(
         (path, g) for (path, _), g in zip(flat, grads))
+
+
+def accumulate(loss_grads, params: dict, batch: dict, accum: int
+               ) -> Tuple[torch.Tensor, dict, dict]:
+    """(loss, metrics, grads) of one step over `accum` microbatches, from
+    ``loss_grads(micro) -> (loss, metrics, grads)``. With `accum` > 1 the
+    batch has the (accum, b_micro, ...) leading layout; the grads are
+    summed in float32 and divided by `accum`, the loss is the mean, and
+    the metrics are empty (the reference's microbatch scan)."""
+    if accum == 1:
+        return loss_grads(batch)
+    grads = tree_lib.map_leaves(
+        lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                              device=p.device), params)
+    loss = torch.zeros((), dtype=torch.float32,
+                       device=tree_lib.leaves(params)[0].device)
+    for i in range(accum):
+        micro = {k: v[i] for k, v in batch.items()}
+        micro_loss, _, g = loss_grads(micro)
+        for gsum, gi in zip(tree_lib.leaves(grads), tree_lib.leaves(g)):
+            gsum.add_(gi.float())
+        del g
+        loss = loss + micro_loss
+    for gsum in tree_lib.leaves(grads):
+        gsum.div_(accum)
+    return loss / accum, {}, grads
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig):
@@ -101,3 +147,219 @@ def make_serve_step(cfg: ModelConfig):
     def serve_step(params, tokens, cache):
         return model_lib.decode_step(params, cfg, tokens, cache)
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Steps on a device mesh
+# ---------------------------------------------------------------------------
+
+
+def _gather_params(params: dict) -> dict:
+    """Every parameter whole on this rank (views on a mesh of one)."""
+    return tree_lib.map_leaves(lambda p: sharding.gather(p).detach(), params)
+
+
+def _local_rows(batch: dict, mesh, dp, dim: int = 0) -> dict:
+    """This rank's rows (its block over `dp` along `dim`) of each leaf of
+    a global batch; views."""
+    return {k: sharding.local_block(v, mesh, dp, dim)
+            for k, v in batch.items()}
+
+
+def _reduce_grad(g: torch.Tensor, p: DTensor) -> torch.Tensor:
+    """This rank's gradient share (``Partial`` over every mesh axis)
+    summed over the ranks and laid out as the parameter `p`: its local
+    shard."""
+    mesh = p.device_mesh
+    if mesh.size() == 1:
+        return g
+    partial = DTensor.from_local(g, mesh, [Partial()] * mesh.ndim,
+                                 run_check=False)
+    return partial.redistribute(mesh, p.placements).to_local()
+
+
+def _global_norm(grads: list, placements: list, mesh) -> torch.Tensor:
+    """``adamw.global_norm`` of the whole gradient from each rank's
+    shards: a shard that several ranks hold (replicated over a mesh axis)
+    counts once, on the rank at index 0 of that axis."""
+    coord = mesh.get_coordinate()
+    sq = []
+    for g, pl in zip(grads, placements):
+        s = torch.sum(torch.square(g.float()))
+        if any(isinstance(p, Replicate) and c != 0
+               for p, c in zip(pl, coord)):
+            s = torch.zeros_like(s)
+        sq.append(s)
+    total = mesh_lib.all_reduce(torch.stack(sq), mesh, "all")
+    return torch.sqrt(sum(total.unbind(0)))
+
+
+def mesh_loss_and_grads(cfg: ModelConfig, params: dict, batch: dict,
+                        mesh, dp, accum: int = 1):
+    """The global loss and this rank's gradient shards of one step on
+    `mesh` (see the module's docstring): (loss, metrics, grads), the loss
+    and metrics global (the same on every rank), the grads a list of the
+    local shards of the parameters' DTensors, in ``tree.flatten`` order.
+    `batch` is the global batch (every rank passes the same; with `accum`
+    > 1 in the (accum, b_micro, ...) layout, its rows split on dim 1)."""
+    world = mesh.size()
+    full = _gather_params(params)
+    local = _local_rows(batch, mesh, dp, 1 if accum > 1 else 0)
+
+    def loss_grads(micro):
+        count = (micro["labels"] >= 0).sum().float()
+        tokens = torch.clamp_min(mesh_lib.all_reduce(count, mesh, "all"), 1.0)
+        return loss_and_grads(cfg, full, micro, tokens=tokens,
+                              aux_weight=1.0 / world)
+
+    loss, metrics, grads = accumulate(loss_grads, full, local, accum)
+    del full
+    loss = mesh_lib.all_reduce(loss.clone(), mesh, "all")
+    if metrics:
+        replicas = world // mesh_lib.axis_size(mesh, dp)   # ranks a row is on
+        metrics = {"ce": mesh_lib.all_reduce(metrics["ce"], mesh, "all"),
+                   "aux": mesh_lib.all_reduce(metrics["aux"], mesh,
+                                              "all") / world,
+                   "tokens": metrics["tokens"] / replicas}
+    shards = [_reduce_grad(g, p) for p, g in
+              zip(tree_lib.leaves(params), tree_lib.leaves(grads))]
+    return loss, metrics, shards
+
+
+def make_mesh_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                         mesh, dp, accum: int = 1):
+    """The train step on `mesh`, over `accum` microbatches.
+    ``step_fn(state, batch)`` takes the state as DTensors and the global
+    batch (:func:`mesh_loss_and_grads`), updates the state in place and
+    returns it with ``{"loss", "grad_norm", "lr"}`` (plus ``"ce"``,
+    ``"aux"``, ``"tokens"`` when `accum` is 1): global values, the same
+    on every rank."""
+
+    def step_fn(state, batch):
+        loss, metrics, shards = mesh_loss_and_grads(
+            cfg, state["params"], batch, mesh, dp, accum)
+        flat = tree_lib.flatten(state["params"])
+        gnorm = _global_norm(shards, [p.placements for _, p in flat], mesh)
+        local_state = tree_lib.map_leaves(lambda t: t.to_local(), state)
+        grads = tree_lib.unflatten(
+            (path, g) for (path, _), g in zip(flat, shards))
+        _, _, info = adamw.apply(opt_cfg, grads, local_state["opt"],
+                                 local_state["params"], grad_norm=gnorm)
+        return state, {"loss": loss, **info, **metrics}
+
+    return step_fn
+
+
+def make_mesh_prefill_step(cfg: ModelConfig, max_len: int, mesh, dp,
+                           logits_spec, cache_spec):
+    """Prefill on `mesh`: gathered parameters, this rank's rows of the
+    global batch; returns the logits and the cache as DTensors with
+    `logits_spec` / the cache's specs."""
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        logits, cache = model_lib.prefill(
+            _gather_params(params), cfg, _local_rows(batch, mesh, dp),
+            max_len)
+        return (sharding.shard_local(logits, mesh, logits_spec, done=dp),
+                _shard_cache(cache, mesh, cache_spec, dp))
+    return prefill_step
+
+
+def make_mesh_serve_step(cfg: ModelConfig, mesh, dp, logits_spec,
+                         cache_spec):
+    """One decode step on `mesh`: the global tokens, the cache as
+    DTensors with its specs; returns the logits and the cache as
+    DTensors."""
+    @torch.no_grad()
+    def serve_step(params, tokens, cache):
+        local_cache = tree_lib.map_leaves(
+            lambda t: sharding.gather(t, keep=dp)
+            if isinstance(t, DTensor) else t, cache)
+        logits, local_cache = model_lib.decode_step(
+            _gather_params(params), cfg,
+            sharding.local_block(tokens, mesh, dp, 0), local_cache)
+        return (sharding.shard_local(logits, mesh, logits_spec, done=dp),
+                _shard_cache(local_cache, mesh, cache_spec, dp))
+    return serve_step
+
+
+def _shard_cache(cache: dict, mesh, specs: dict, dp) -> dict:
+    return tree_lib.map_leaves(
+        lambda t, s: sharding.shard_local(t, mesh, s, done=dp)
+        if isinstance(t, torch.Tensor) else t, cache, specs)
+
+
+def _layout_dp(mesh, global_batch: int, layout: str):
+    if layout == "fsdp":
+        # both axes act as data parallel when the batch divides them
+        dp_all = tuple(a for a in ("pod", "data", "model")
+                       if a in mesh.mesh_dim_names)
+        if global_batch % mesh_lib.axis_size(mesh, dp_all) == 0:
+            return dp_all
+    return sharding.data_axes(mesh, global_batch)
+
+
+def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
+               opt_cfg: adamw.AdamWConfig | None = None,
+               layout: str = "tp", accum: int = 1):
+    """Returns (fn, example_args, in_placements, out_placements).
+
+    layout: "tp" (Megatron TP x FSDP) | "fsdp" (pure ZeRO-3) |
+            "swep" (TP with the expert-parallel SW+ MoE dispatch).
+    `example_args` are ``meta`` tensors (no allocation); the placements
+    are trees of DTensor placement tuples on `mesh`
+    (``sharding.to_placements``). The train step takes `accum`
+    microbatches (its batch then has the (accum, b_micro, S) layout).
+    """
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    if layout == "swep":
+        cfg = dataclasses.replace(cfg, moe_dispatch="sw_plus_ep")
+    dp = _layout_dp(mesh, shape.global_batch, layout)
+    granularity.set_mesh(mesh, dp)
+    P = sharding.PartitionSpec
+
+    if shape.kind == "train":
+        st = state_struct(cfg)
+        bt = batch_struct(cfg, shape)
+        bspec = sharding.batch_specs(bt, dp)
+        if accum > 1:
+            bt = {k: _meta((accum, v.shape[0] // accum) + tuple(v.shape[1:]),
+                           v.dtype) for k, v in bt.items()}
+            bspec = {k: P(None, *s) for k, s in bspec.items()}
+        in_pl = (sharding.to_placements(
+                     mesh, sharding.state_specs(st["params"], layout)),
+                 sharding.to_placements(mesh, bspec))
+        metric_keys = ("loss", "grad_norm", "lr") + (
+            ("ce", "aux", "tokens") if accum == 1 else ())
+        replicated = (Replicate(),) * mesh.ndim
+        out_pl = (in_pl[0], {k: replicated for k in metric_keys})
+        fn = make_mesh_train_step(cfg, opt_cfg, mesh, dp, accum)
+        return fn, (st, bt), in_pl, out_pl
+
+    params = state_struct(cfg)["params"]
+    p_pl = sharding.to_placements(mesh, sharding.param_specs(params, layout))
+    logits_spec = P(dp, None) if layout == "fsdp" else P(dp, "model")
+    logits_pl = sharding.to_placements(mesh, logits_spec)
+    cache = cache_struct(cfg, shape)
+    cspec = sharding.cache_specs(cache, dp)
+    cache_pl = sharding.to_placements(mesh, cspec)
+
+    if shape.kind == "prefill":
+        bt = {k: v for k, v in batch_struct(cfg, shape).items()
+              if k != "labels"}
+        in_pl = (p_pl, sharding.to_placements(
+            mesh, sharding.batch_specs(bt, dp)))
+        fn = make_mesh_prefill_step(cfg, shape.seq_len, mesh, dp,
+                                    logits_spec, cspec)
+        return fn, (params, bt), in_pl, (logits_pl, cache_pl)
+
+    # decode: one new token with a seq_len-deep cache
+    if cfg.frontend in ("audio", "vlm"):
+        tok = _meta((shape.global_batch, 1, cfg.d_model), torch.bfloat16)
+        tok_pl = sharding.to_placements(mesh, P(dp, None, None))
+    else:
+        tok = _meta((shape.global_batch, 1), torch.int32)
+        tok_pl = sharding.to_placements(mesh, P(dp, None))
+    fn = make_mesh_serve_step(cfg, mesh, dp, logits_spec, cspec)
+    return fn, (params, tok, cache), (p_pl, tok_pl, cache_pl), (logits_pl,
+                                                                cache_pl)

@@ -21,9 +21,14 @@ Features, as in the reference:
   * straggler monitoring (median+6*MAD flagging; a step's clock stops
     once its loss has reached the host),
   * gradient accumulation (--accum): a loop over microbatches summing
-    float32 gradients, one optimizer update.
-The reference's mesh (``--model-parallel`` > 1) waits for the port's
-distribution slice: any other value than 1 raises.
+    float32 gradients, one optimizer update,
+  * a device mesh, as the reference's: ``make_host_mesh(--model-parallel)``
+    over the ranks of the process group, the state laid out by
+    ``sharding.param_specs`` and the step of ``launch.steps`` on it. One
+    process is a world of one, a (1, 1) mesh; under ``torchrun`` every
+    rank runs this driver, rank 0 prints and writes the checkpoints:
+      torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+          --smoke --device cpu --model-parallel 2
 """
 
 from __future__ import annotations
@@ -34,13 +39,14 @@ import json
 import os
 from typing import Callable, Optional
 
-import torch
+import torch.distributed as dist
 
-from repro_torch import tree as tree_lib
+from repro_torch import sharding
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import get_config, list_archs
 from repro_torch.data import DataConfig, SyntheticCorpus
 from repro_torch.data.loader import to_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
@@ -50,32 +56,16 @@ from repro_torch.runtime import fault, straggler
 
 def make_accum_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                           accum: int):
-    """Gradient-accumulated train step: a loop over microbatches, one
-    optimizer update. batch: (accum, b_micro, S) leading layout when
-    `accum` > 1. Updates the state in place and returns it with
-    ``{"loss", "grad_norm", "lr"}``."""
+    """Gradient-accumulated train step on one device, without a mesh: a
+    loop over microbatches, one optimizer update. batch: (accum, b_micro,
+    S) leading layout when `accum` > 1. Updates the state in place and
+    returns it with ``{"loss", "grad_norm", "lr"}``."""
 
     def step_fn(state, batch):
         params = state["params"]
-        if accum == 1:
-            loss, _, grads = steps.loss_and_grads(cfg, params, batch)
-        else:
-            grads = tree_lib.map_leaves(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params)
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=tree_lib.leaves(params)[0].device)
-            for i in range(accum):
-                micro = {k: v[i] for k, v in batch.items()}
-                micro_loss, _, g = steps.loss_and_grads(cfg, params, micro)
-                for gsum, gi in zip(tree_lib.leaves(grads),
-                                    tree_lib.leaves(g)):
-                    gsum.add_(gi.float())
-                del g
-                loss = loss + micro_loss
-            for gsum in tree_lib.leaves(grads):
-                gsum.div_(accum)
-            loss = loss / accum
+        loss, _, grads = steps.accumulate(
+            lambda micro: steps.loss_and_grads(cfg, params, micro),
+            params, batch, accum)
         new_params, new_opt, info = adamw.apply(
             opt_cfg, grads, state["opt"], params)
         out = {"loss": loss, **info}
@@ -149,33 +139,42 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
     """Train as `args` say; `cfg` replaces the config of ``--arch`` (a
     caller's cut of it, such as fewer layers). Returns the final JSON's
     fields plus ``losses`` and ``step_s`` (each step's wall, in s)."""
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 needs the port's distribution slice "
-            "(sharding, device mesh)")
     device = model_lib.resolve_device(args.device)
     if cfg is None:
         cfg = get_config(args.arch, smoke=args.smoke)
         cfg = dataclasses.replace(cfg, remat="none") if args.smoke else cfg
+    mesh = mesh_lib.make_host_mesh(args.model_parallel, device)
+    rank = dist.get_rank()
+    if not mesh_lib.member(mesh):
+        return {"first_loss": None, "last_loss": None, "losses": [],
+                "straggler_events": 0, "final_step": args.steps,
+                "step_s": []}
+    dp = sharding.data_axes(mesh, args.batch)
+    placements = sharding.to_placements(mesh, sharding.state_specs(
+        steps.state_struct(cfg)["params"]))
     get_batch = batch_fn(args, cfg, device)
 
     start_step = 0
     if args.ckpt_dir:
         state, start_step = fault.resume_or_init(
             args.ckpt_dir, lambda: init_state(cfg, args.seed, device),
-            steps.state_struct(cfg), device)
+            steps.state_struct(cfg), device, mesh=mesh,
+            placements=placements)
     else:
-        state = init_state(cfg, args.seed, device)
+        state = sharding.distribute_tree(init_state(cfg, args.seed, device),
+                                         mesh, placements)
 
+    marker = "fail_marker" if rank == 0 else f"fail_marker.rank{rank}"
     injector = fault.FailureInjector(
         args.fail_at,
-        marker_path=(os.path.join(args.ckpt_dir, "fail_marker")
+        marker_path=(os.path.join(args.ckpt_dir, marker)
                      if args.ckpt_dir else None))
     monitor = straggler.StragglerMonitor()
     saver = (ckpt.AsyncCheckpointer(args.ckpt_dir)
              if args.ckpt_dir else None)
 
-    step_fn = make_accum_train_step(cfg, opt_config(args), args.accum)
+    step_fn = steps.make_mesh_train_step(cfg, opt_config(args), mesh, dp,
+                                         args.accum)
 
     losses, step_s = [], []
     try:
@@ -187,7 +186,8 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
             monitor.end_step(step)
             step_s.append(monitor.window[-1])
             losses.append(loss)
-            if step % args.log_every == 0 or step == args.steps - 1:
+            if rank == 0 and (step % args.log_every == 0
+                              or step == args.steps - 1):
                 print(f"step {step:5d} loss {loss:.4f} "
                       f"lr {float(metrics['lr']):.2e} "
                       f"gnorm {float(metrics['grad_norm']):.3f}",
@@ -217,8 +217,9 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None
         "final_step": args.steps,
         "step_s": step_s,
     }
-    print(json.dumps({k: v for k, v in result.items()
-                      if k not in ("losses", "step_s")}))
+    if rank == 0:
+        print(json.dumps({k: v for k, v in result.items()
+                          if k not in ("losses", "step_s")}))
     return result
 
 

@@ -263,10 +263,15 @@ def logits_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor
 
 
 def train_loss(params: dict, cfg: ModelConfig, batch: dict,
-               aux_coeff: float = 0.01) -> Tuple[torch.Tensor, dict]:
+               aux_coeff: float = 0.01, tokens=None, aux_weight=None
+               ) -> Tuple[torch.Tensor, dict]:
     """Mean next-token cross-entropy over the labels >= 0, plus the MoE
     load-balance loss times `aux_coeff` over the layers. Returns (total,
-    {ce, aux, tokens}), 0-dim float32 tensors."""
+    {ce, aux, tokens}), 0-dim float32 tensors.
+
+    A rank of a mesh passes its share of the global loss: `tokens`, the
+    count its cross-entropy sum is divided by (default: this batch's
+    labels >= 0), and `aux_weight`, which scales its load-balance term."""
     x = embed_inputs(params, cfg, batch)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
@@ -278,9 +283,12 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict,
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (lse - ll) * mask
-    denom = torch.clamp_min(mask.sum(), 1.0)
+    denom = torch.clamp_min(mask.sum(), 1.0) if tokens is None else tokens
     ce = nll.sum() / denom
-    total = ce + aux_coeff * aux / max(cfg.n_layers, 1)
+    aux_term = aux_coeff * aux / max(cfg.n_layers, 1)
+    if aux_weight is not None:
+        aux_term = aux_term * aux_weight
+    total = ce + aux_term
     return total, {"ce": ce, "aux": aux, "tokens": denom}
 
 

@@ -11,6 +11,8 @@ granularity/coalescing choice of the warp-size study:
   coalescing): tokens are sorted by expert, gathered into expert-
   contiguous, block-aligned rows by K3 (``kernels.ops.coalesced_gather``)
   and multiplied by K4 (``kernels.ops.moe_gmm``), three times a layer.
+* ``sw_plus_ep`` — the same dispatch, expert-parallel over the mesh's
+  model axis (``core.granularity.sw_plus_ep_layer``).
 
 Both compute the same function (up to capacity drops); the tests hold
 each against the dense oracle and against the reference. Semantics kept
@@ -241,10 +243,10 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: ModelConfig
     b, s, d = x.shape
     flat = x.reshape(-1, d)
     if cfg.moe_dispatch == "sw_plus_ep":
-        raise NotImplementedError(
-            "moe_dispatch 'sw_plus_ep' needs core/granularity.py, which the "
-            "port does not have yet")
-    if cfg.moe_dispatch == "sw_plus":
+        from repro_torch.core import granularity   # lazy: avoid import cycle
+        y, aux = granularity.sw_plus_ep_layer(params, x, cfg)
+        y = y.reshape(-1, d)
+    elif cfg.moe_dispatch == "sw_plus":
         y, aux = dispatch_sw_plus(params, flat, cfg)
     else:
         y, aux = dispatch_lw_plus(params, flat, cfg)

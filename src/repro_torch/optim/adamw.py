@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -72,13 +72,16 @@ def _decay_mask(path) -> bool:
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, grads: dict, opt: dict, params: dict
+def apply(cfg: AdamWConfig, grads: dict, opt: dict, params: dict,
+          grad_norm: Optional[torch.Tensor] = None
           ) -> Tuple[dict, dict, dict]:
     """Returns (new_params, new_opt, info): `params` and `opt`, updated in
-    place. `grads` has the parameters' tree (any float dtype)."""
+    place. `grads` has the parameters' tree (any float dtype). Where the
+    trees hold a rank's shards, `grad_norm` gives the global norm of the
+    whole gradient (default: :func:`global_norm` of `grads`)."""
     opt["step"].add_(1)
     step = opt["step"]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                         max=1.0)
     lr = schedule(cfg, step)

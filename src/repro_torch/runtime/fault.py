@@ -23,6 +23,7 @@ import dataclasses
 import os
 from typing import Any, Callable, Optional, Tuple
 
+from repro_torch import sharding
 from repro_torch.checkpoint import ckpt
 
 
@@ -50,16 +51,22 @@ class FailureInjector:
 
 
 def resume_or_init(ckpt_dir: str, init_fn: Callable[[], Any], target: Any,
-                   device=None) -> Tuple[Any, int]:
+                   device=None, mesh=None, placements=None
+                   ) -> Tuple[Any, int]:
     """Restore the latest checkpoint or build fresh state.
 
     Returns (state, start_step). `init_fn` is only called when no
     checkpoint exists; otherwise the checkpoint is restored into the
     structure of `target` (tensors, or ``meta`` tensors giving shapes and
-    dtypes) on `device`.
+    dtypes) on `device`. With `mesh`, the state is laid out as DTensors
+    with the tree of `placements` (the reference's ``shardings``).
     """
     step = ckpt.latest_step(ckpt_dir)
     if step is None:
-        return init_fn(), 0
-    state = ckpt.restore(ckpt_dir, target, step=step, device=device)
+        state = init_fn()
+        if mesh is not None:
+            state = sharding.distribute_tree(state, mesh, placements)
+        return state, 0
+    state = ckpt.restore(ckpt_dir, target, step=step, device=device,
+                         mesh=mesh, placements=placements)
     return state, step

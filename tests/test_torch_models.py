@@ -149,7 +149,7 @@ def test_unknown_arch_and_family_raise():
     with pytest.raises(NotImplementedError, match="rwkv"):
         tmodel.init_params(cfg, 0, "cpu")
     _, moe = _cfg("moe", moe_dispatch="sw_plus_ep")
-    with pytest.raises(NotImplementedError, match="granularity"):
+    with pytest.raises(AssertionError, match="granularity.set_mesh"):
         tmoe.moe_layer({}, torch.zeros((1, 2, 64)), moe)
 
 

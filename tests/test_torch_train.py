@@ -612,7 +612,8 @@ def test_train_main_log_and_json(capsys):
 
 
 def test_model_parallel_and_cuda_without_card_raise():
-    with pytest.raises(NotImplementedError, match="model-parallel"):
+    """One process is a world of one rank: a (1, 2) mesh needs two."""
+    with pytest.raises(RuntimeError, match="needs at least 2 ranks"):
         ttrain.main(["--smoke", "--steps", "1", "--device", "cpu",
                      "--model-parallel", "2"])
     if torch.cuda.is_available():
