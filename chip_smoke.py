@@ -186,6 +186,29 @@
    4096, H 16, hd 128 with slots empty, against softmax attention (rtol
    and atol 1e-5).
 
+19. The benchmark harness, the dry run and the examples
+   (``repro_torch.benchmarks.harness_smoke``). (c) starts first, in a
+   child process (a process group of its own): ``python -m
+   repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k
+   --mesh single --force`` (rank 0 of a fake 512-rank group, the step on
+   ``meta`` tensors under ``op_analysis``; no card): status ``ok``, its
+   row printed, then ``roofline_table.run()``'s rows. Meanwhile (a)
+   ``moe_dispatch_bench.run("cuda")`` with the launch counts set to 0
+   just before and read just after (K3 once and K4 three times a SW+
+   call: 8 and 24), then each router's case on the card and on the host
+   CPU from the same inputs: both strategies' outputs against the dense
+   oracle (LW+'s with its dropped assignments left out) within K4's
+   float32 tolerance, slot efficiencies and drop rates equal to the
+   CPU's unless top-k choices flipped at near ties (counted and
+   printed); and (b) ``sweep_bench.run(quick=True)`` on the card (one
+   ``ws_family_kernel`` launch a trace family cold, none warm, records
+   bit for bit with ``engine="torch"``). Then, all at once, child
+   processes (d) ``python -m repro_torch.benchmarks.run --only
+   moe,roofline`` (exit 0, its CSV rows) and (e) the four examples on the
+   card (``quickstart``, ``serve_batched``, ``train_resume`` and
+   ``warpsize_study``, the drill's checkpoints and the study's cache
+   under ``build/``, removed after): exit codes 0.
+
 Prints one JSON object of kernel records on the line before the last and
 ``{"ok": true, "device": ...}`` as the last line. Exits non-zero, printing
 no result, without a CUDA device, outside a checkout, or on any mismatch.
@@ -1814,6 +1837,86 @@ def dist_phase(torch, dev, card):
     print(f"distribution phase: {time.perf_counter() - t_phase:.3f} s")
 
 
+def harness_phase(torch, dev, card):
+    """Step 19: the benchmark harness, the dry run and the examples, through
+    ``repro_torch.benchmarks.harness_smoke`` (each check raises
+    AssertionError on a failure)."""
+    from repro_torch.benchmarks import harness_smoke as hs
+    from repro_torch.benchmarks import roofline_table
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    children = {}
+    try:
+        stamp("harness (c): the dry run, in a child process")
+        children["dryrun"] = hs.start("dryrun", hs.DRYRUN, work)
+
+        stamp("harness (a): moe_dispatch_bench on the card")
+        a = hs.moe_check(dev)
+        print(f"harness (a): moe_dispatch_bench.run('cuda'): launches "
+              f"{a['launches']} (K3 once, K4 three times a SW+ call) "
+              f"[{card}]")
+        for name, us, derived in a["rows"]:
+            print(f"  {name},{us:.1f},{derived:.6g}")
+        for label, r in a["routers"].items():
+            print(f"  {label}: top-k flips against the host CPU at near "
+                  f"ties {r['flips']}; slot efficiencies {r['slot_eff']} "
+                  f"(CPU {r['cpu_slot_eff']}), drop rate {r['drop_rate']} "
+                  f"(CPU {r['cpu_drop_rate']}); max abs err from the dense "
+                  f"oracle {r['max_abs_err']} (rtol {hs.K4_TOL[0]}, atol "
+                  f"{hs.K4_TOL[1]})")
+
+        stamp("harness (b): sweep_bench --quick on the card")
+        for name, us, derived in hs.sweep_check(dev):
+            print(f"  {name},{us:.1f},{derived:.6g}")
+        print(f"harness (b): one ws_family_kernel launch a trace family "
+              f"cold, none warm, records == engine='torch' [{card}]")
+
+        dry = hs.finish(children.pop("dryrun"))
+        hs.check_finished("dry run", dry)
+        from repro_torch.launch import dryrun
+        with open(dryrun.RESULTS, encoding="utf-8") as fh:
+            key = "|".join(hs.DRYRUN_CELL[:2]) + "|pod16x16"
+            row = json.load(fh)[key]
+        if row.get("status") != "ok":
+            fail(f"dry run of {key}: {row}")
+        r = row["roofline"]
+        print(f"harness (c): dry run {key} in {dry['wall_s']:.3f} s (a "
+              f"child process; build {row['lower_s']} s, counted call "
+              f"{row['compile_s']} s): flops_per_device "
+              f"{r['flops_per_device']:.6e}, useful_flops_ratio "
+              f"{r['useful_flops_ratio']:.6f}, temp_bytes "
+              f"{row['memory']['temp_bytes']:.6e}, collectives "
+              f"{r['collective_breakdown']}, dominant {r['dominant']}")
+        print(f"  row: {json.dumps(row)}")
+        for name, us, derived in roofline_table.run():
+            print(f"  {name},{us:.1f},{derived:.6g}")
+
+        stamp("harness (d) and (e): run.py and the examples, child "
+              "processes")
+        children["run"] = hs.start("run", hs.RUN, work)
+        for name, argv in hs.example_commands(work).items():
+            children[name] = hs.start(name, argv, work)
+        for name in list(children):
+            res = hs.finish(children.pop(name))
+            hs.check_finished(name, res)
+            tail = [ln for ln in res["stdout"].splitlines() if ln.strip()]
+            print(f"harness ({'d' if name == 'run' else 'e'}): {name} exit 0 "
+                  f"in {res['wall_s']:.3f} s [{card}]; last line: "
+                  f"{tail[-1][:160] if tail else ''}")
+            if name == "run":
+                rows = hs.csv_rows(res["stdout"])
+                for row_name, us, derived in rows:
+                    print(f"  {row_name},{us:.1f},{derived:.6g}")
+    finally:
+        for child in children.values():
+            child["proc"].kill()
+            hs.finish(child)
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"harness phase: {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2185,6 +2288,7 @@ def main() -> None:
     stamp("training: smoke steps against the host CPU, the autograd guard")
     train_phase(torch, dev, card)
     dist_phase(torch, dev, card)
+    harness_phase(torch, dev, card)
     stamp("done")
     del flash_cases, ssd_cases
     for name in ("flash_attention_kernel", "ssd_scan_kernel"):

@@ -18,11 +18,13 @@ cases, on a (2, 2) ("data", "model") mesh unless said:
   split by sequence over "model".
 * ``compress``: ``compression.compressed_psum_grads`` over a 1-D mesh of
   ranks 0 and 1 (rank r passes replica r).
-* ``step_<layout>``: ``steps.build_step``'s train step: the loss,
-  metrics and whole gradients of ``steps.mesh_loss_and_grads``, then one
-  step, after which every rank's shards of params and AdamW moments must
-  have the shapes their specs give; and the prefill and decode arms'
-  logits and cache, gathered whole.
+* ``step_<case>``, one a case the inputs name (its layout and config):
+  ``steps.build_step``'s train step: the loss, metrics and whole
+  gradients of ``steps.mesh_loss_and_grads``, then one step, after which
+  every rank's shards of params and AdamW moments must have the shapes
+  their specs give; and the prefill and decode arms' logits and cache,
+  gathered whole. A ``sw_plus`` MoE (K3 and K4 have no backward) gives
+  ``steps.mesh_loss``'s loss and metrics and its arms.
 * ``elastic``: a state on the (2, 2) mesh saved with ``ckpt.save`` and
   ``elastic.recover``-ed onto a mesh of ranks 0 and 1: equal bit for bit
   there, no state on ranks 2 and 3.
@@ -175,12 +177,14 @@ def _expected_local_shape(shape, placements, mesh) -> tuple:
     return tuple(sizes)
 
 
-def step_case(inputs, mesh, out, layout: str) -> None:
-    """build_step's arms with `layout`."""
-    key = "step_" + layout
+def step_case(inputs, mesh, out, case: str) -> None:
+    """build_step's arms in `case`'s layout and config."""
+    key = "step_" + case
+    layout = str(inputs[key + "/layout"])
     cfg = _cfg(inputs, key + "/cfg")
     tokens = torch.from_numpy(inputs[key + "/tokens"])
     b, s = tokens.shape
+    batch = {"tokens": tokens, "labels": tokens}
     fn, (st, bt), in_pl, out_pl = steps.build_step(
         cfg, ShapeConfig(name="t", seq_len=s, global_batch=b, kind="train"),
         mesh, adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=4),
@@ -191,12 +195,19 @@ def step_case(inputs, mesh, out, layout: str) -> None:
                if layout == "swep" else cfg)
     params = convert.params_from_numpy(_tree(inputs, key + "/params"),
                                        run_cfg, "cpu")
+    dp = steps._layout_dp(mesh, b, layout)
+    if cfg.moe_dispatch == "sw_plus":
+        loss, metrics = steps.mesh_loss(cfg, sharding.distribute_tree(
+            params, mesh, in_pl[0]["params"]), batch, mesh, dp)
+        out[key + "/loss"] = _np(loss)
+        for name, m in metrics.items():
+            out[f"{key}/{name}"] = _np(m)
+        _arms(inputs, mesh, out, key, cfg, layout)
+        return
     state = sharding.distribute_tree(
         {"params": params, "opt": adamw.init(params)}, mesh, in_pl[0])
-    batch = {"tokens": tokens, "labels": tokens}
     loss, metrics, shards = steps.mesh_loss_and_grads(
-        run_cfg, state["params"], batch, mesh, steps._layout_dp(mesh, b,
-                                                                layout))
+        run_cfg, state["params"], batch, mesh, dp)
     out[key + "/loss"] = _np(loss)
     for name, m in metrics.items():
         out[f"{key}/{name}"] = _np(m)
@@ -220,11 +231,14 @@ def step_case(inputs, mesh, out, layout: str) -> None:
                       f"{tuple(t.to_local().shape)}, spec gives {want}",
                       flush=True)
     out[key + "/shards_ok"] = np.asarray(_all_ok(ok))
-    if layout == "swep":
-        granularity.set_mesh(None)
-        return
+    if layout != "swep":
+        _arms(inputs, mesh, out, key, cfg, layout)
+    granularity.set_mesh(None)
 
-    # prefill and decode arms on the step's weights
+
+def _arms(inputs, mesh, out, key: str, cfg: ModelConfig, layout: str
+          ) -> None:
+    """The prefill and decode arms on the step's weights."""
     ptoks = torch.from_numpy(inputs[key + "/prompt"])
     pshape = ShapeConfig(name="p", seq_len=int(inputs[key + "/max_len"]),
                          global_batch=ptoks.shape[0], kind="prefill")
@@ -278,8 +292,8 @@ def run_cases(inputs_path: str, out_path: str) -> None:
     ep_case(inputs, mesh, out)
     decode_case(inputs, mesh, out)
     compress_case(inputs, out)
-    for layout in ("tp", "fsdp", "swep"):
-        step_case(inputs, mesh, out, layout)
+    for case in json.loads(str(inputs["step_cases"])):
+        step_case(inputs, mesh, out, case)
     workdir = os.path.join(os.path.dirname(os.path.abspath(out_path)),
                            "elastic_ckpt")
     elastic_case(inputs, mesh, out, workdir)

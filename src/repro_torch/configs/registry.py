@@ -20,6 +20,10 @@ _ARCHS: Dict[str, str] = {
     "hymba-1.5b": "hymba_1_5b",
 }
 
+# Archs with a sub-quadratic long-context mode (run long_500k); the pure
+# full-attention archs skip it.
+LONG_CONTEXT_ARCHS = ("mamba2-780m", "hymba-1.5b")
+
 
 def list_archs() -> List[str]:
     return list(_ARCHS)
@@ -31,3 +35,11 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[arch]}")
     cfg: ModelConfig = mod.SMOKE if smoke else mod.CONFIG
     return cfg.validate()
+
+
+def runnable_shapes(arch: str) -> List[str]:
+    """Shape cells for this arch (long_500k only for sub-quadratic archs)."""
+    shapes = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in LONG_CONTEXT_ARCHS:
+        shapes.append("long_500k")
+    return shapes

@@ -23,22 +23,29 @@ The grouped matmul is the block-gather formulation (one weight tile
 gathered per BM row-block), as in the reference, which computes it
 outside any Pallas kernel; it differentiates, so the ``swep`` layout
 trains. K3 and K4 (``models.moe.dispatch_sw_plus``) have no backward.
+
+:class:`DataRanks` and :func:`global_routing` give the other dispatches
+(``lw_plus``, ``sw_plus``) the global batch's routing on a mesh: while a
+mesh step runs, ``models.moe`` reads its data ranks here.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 
 _MESH = None
 _DP = None
+_RANKS = None
 
 
 def set_mesh(mesh, dp=None) -> None:
@@ -46,6 +53,55 @@ def set_mesh(mesh, dp=None) -> None:
     global _MESH, _DP
     _MESH = mesh
     _DP = dp
+
+
+class DataRanks:
+    """The data ranks of a mesh whose rows one MoE layer routes together,
+    as the reference's GSPMD program routes its global batch: rank i of
+    the ``n`` holds block i of the rows (``sharding.local_block``'s
+    order, major axis first)."""
+
+    def __init__(self, mesh, dp):
+        self.mesh = mesh
+        self.axes = sharding._axes(dp)
+        self.index, self.n = sharding._coordinate(mesh, self.axes)
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of `t` over the ranks (differentiable)."""
+        return mesh_lib.psum(t, self.mesh, self.axes)
+
+    def before(self, counts: torch.Tensor) -> torch.Tensor:
+        """The sum of `counts` over the ranks before this one in block
+        order (an all-gather over each data axis, minor first)."""
+        rows = counts[None]
+        for a in reversed(self.axes):
+            group = self.mesh.get_group(a)
+            parts = [torch.empty_like(rows)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, rows.contiguous(), group=group)
+            rows = torch.cat(parts)
+        return rows[:self.index].sum(0)
+
+
+def data_ranks() -> Optional[DataRanks]:
+    """The data ranks of the mesh step running now (None off a mesh, or
+    with one data rank)."""
+    return _RANKS
+
+
+@contextlib.contextmanager
+def global_routing(mesh, dp):
+    """Within the block, MoE layers route over `dp`'s ranks of `mesh`
+    (when there are more than one): ``launch.steps`` enters it around
+    each step it runs on a mesh, backward and remat recompute included."""
+    global _RANKS
+    prev = _RANKS
+    _RANKS = (DataRanks(mesh, dp)
+              if dp and mesh_lib.axis_size(mesh, dp) > 1 else None)
+    try:
+        yield
+    finally:
+        _RANKS = prev
 
 
 def _round_up(x: int, m: int) -> int:

@@ -1,0 +1,2 @@
+"""The reference's examples on the port: ``python -m
+repro_torch.examples.<name> [--device cpu]``."""

@@ -84,7 +84,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def ssd_scan(xdt: torch.Tensor, da: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, chunk: int = 128) -> torch.Tensor:
-    """Mamba2 SSD chunked scan: one block of the kernel per (bh, chunk),
-    the state handed on from chunk to chunk through a float32 scratch."""
+    """Mamba2 SSD chunked scan: three launches over a float32 state
+    scratch the wrapper allocates: ``ssd_scan_states`` (each chunk's
+    state as if it started from zero), ``ssd_scan_pass`` (the state each
+    chunk starts from, carried over the chunks in order) and
+    ``ssd_scan_outputs`` (each chunk's outputs from its start state)."""
     _no_backward("ssd_scan", xdt, da, b, c)
     return _ssd_k.ssd_scan_kernel(xdt, da, b, c, chunk=chunk)

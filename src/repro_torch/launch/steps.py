@@ -24,6 +24,13 @@ mesh axis and are redistributed to each parameter's placements (a
 reduce-scatter), where AdamW updates the local shards; the gradient norm
 is global. On a mesh of one rank every redistribution is the identity,
 and the step is the plain step's operations.
+
+A MoE layer of the ``lw_plus`` or ``sw_plus`` dispatch routes the global
+batch, as the reference's GSPMD step does: each mesh step runs within
+``granularity.global_routing`` over its data axes, so the layer sums its
+router statistics over the data ranks and places LW+'s assignments by
+the counts of the ranks before it (``models.moe``). With one data rank
+no collective runs.
 """
 
 from __future__ import annotations
@@ -202,18 +209,34 @@ def mesh_loss_and_grads(cfg: ModelConfig, params: dict, batch: dict,
     local shards of the parameters' DTensors, in ``tree.flatten`` order.
     `batch` is the global batch (every rank passes the same; with `accum`
     > 1 in the (accum, b_micro, ...) layout, its rows split on dim 1)."""
-    world = mesh.size()
     full = _gather_params(params)
     local = _local_rows(batch, mesh, dp, 1 if accum > 1 else 0)
 
     def loss_grads(micro):
-        count = (micro["labels"] >= 0).sum().float()
-        tokens = torch.clamp_min(mesh_lib.all_reduce(count, mesh, "all"), 1.0)
-        return loss_and_grads(cfg, full, micro, tokens=tokens,
-                              aux_weight=1.0 / world)
+        with granularity.global_routing(mesh, dp):
+            return loss_and_grads(cfg, full, micro, **_share(micro, mesh))
 
     loss, metrics, grads = accumulate(loss_grads, full, local, accum)
     del full
+    loss, metrics = _global_metrics(loss, metrics, mesh, dp)
+    shards = [_reduce_grad(g, p) for p, g in
+              zip(tree_lib.leaves(params), tree_lib.leaves(grads))]
+    return loss, metrics, shards
+
+
+def _share(micro: dict, mesh) -> dict:
+    """``train_loss``'s arguments that make a rank's loss its share of
+    the global mean: the mesh's token count and 1/world of the balance
+    term."""
+    count = (micro["labels"] >= 0).sum().float()
+    return {"tokens": torch.clamp_min(
+                mesh_lib.all_reduce(count, mesh, "all"), 1.0),
+            "aux_weight": 1.0 / mesh.size()}
+
+
+def _global_metrics(loss, metrics: dict, mesh, dp):
+    """The global loss and metrics from each rank's share."""
+    world = mesh.size()
     loss = mesh_lib.all_reduce(loss.clone(), mesh, "all")
     if metrics:
         replicas = world // mesh_lib.axis_size(mesh, dp)   # ranks a row is on
@@ -221,9 +244,19 @@ def mesh_loss_and_grads(cfg: ModelConfig, params: dict, batch: dict,
                    "aux": mesh_lib.all_reduce(metrics["aux"], mesh,
                                               "all") / world,
                    "tokens": metrics["tokens"] / replicas}
-    shards = [_reduce_grad(g, p) for p, g in
-              zip(tree_lib.leaves(params), tree_lib.leaves(grads))]
-    return loss, metrics, shards
+    return loss, metrics
+
+
+@torch.no_grad()
+def mesh_loss(cfg: ModelConfig, params: dict, batch: dict, mesh, dp):
+    """The global loss and metrics of :func:`mesh_loss_and_grads` without
+    gradients: what a config whose layers have no backward (``sw_plus``,
+    on K3 and K4) can compute on `mesh`."""
+    local = _local_rows(batch, mesh, dp)
+    with granularity.global_routing(mesh, dp):
+        loss, metrics = model_lib.train_loss(
+            _gather_params(params), cfg, local, **_share(local, mesh))
+    return _global_metrics(loss, metrics, mesh, dp)
 
 
 def make_mesh_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
@@ -257,9 +290,10 @@ def make_mesh_prefill_step(cfg: ModelConfig, max_len: int, mesh, dp,
     `logits_spec` / the cache's specs."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, cache = model_lib.prefill(
-            _gather_params(params), cfg, _local_rows(batch, mesh, dp),
-            max_len)
+        with granularity.global_routing(mesh, dp):
+            logits, cache = model_lib.prefill(
+                _gather_params(params), cfg, _local_rows(batch, mesh, dp),
+                max_len)
         return (sharding.shard_local(logits, mesh, logits_spec, done=dp),
                 _shard_cache(cache, mesh, cache_spec, dp))
     return prefill_step
@@ -275,9 +309,10 @@ def make_mesh_serve_step(cfg: ModelConfig, mesh, dp, logits_spec,
         local_cache = tree_lib.map_leaves(
             lambda t: sharding.gather(t, keep=dp)
             if isinstance(t, DTensor) else t, cache)
-        logits, local_cache = model_lib.decode_step(
-            _gather_params(params), cfg,
-            sharding.local_block(tokens, mesh, dp, 0), local_cache)
+        with granularity.global_routing(mesh, dp):
+            logits, local_cache = model_lib.decode_step(
+                _gather_params(params), cfg,
+                sharding.local_block(tokens, mesh, dp, 0), local_cache)
         return (sharding.shard_local(logits, mesh, logits_spec, done=dp),
                 _shard_cache(local_cache, mesh, cache_spec, dp))
     return serve_step

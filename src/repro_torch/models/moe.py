@@ -15,7 +15,16 @@ granularity/coalescing choice of the warp-size study:
   model axis (``core.granularity.sw_plus_ep_layer``).
 
 Both compute the same function (up to capacity drops); the tests hold
-each against the dense oracle and against the reference. Semantics kept
+each against the dense oracle and against the reference.
+
+On a mesh, a step gives the layer its data ranks' rows
+(``core.granularity.DataRanks``, while ``global_routing`` is entered), and
+``lw_plus`` and ``sw_plus`` route them as the one global batch the
+reference's GSPMD step routes: the load-balance term from the router
+statistics summed over the ranks, LW+'s capacity from the global token
+count and each assignment's position in its expert from the counts of
+the ranks before it. These are collectives of ``2E`` floats and ``E``
+integers a rank; no activation leaves the rank. Semantics kept
 from JAX: a stable sort, ``searchsorted(side="right")``, top-k with equal
 values ordered by lower index first, indices clamped where JAX clamps.
 Scatter-adds (``index_add_``, ``index_put_(accumulate=True)``) use
@@ -25,7 +34,7 @@ results there are compared with a tolerance.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,8 +75,12 @@ def _top_k(probs: torch.Tensor, k: int):
     return torch.gather(probs, -1, idx), idx
 
 
-def router_probs(params: dict, x: torch.Tensor, cfg: ModelConfig):
-    """x: (T, D) -> top-k (weights (T,k), experts (T,k)), aux loss scalar."""
+def router_probs(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                 ranks=None):
+    """x: (T, D) -> top-k (weights (T,k), experts (T,k)), aux loss scalar.
+
+    With `ranks` (``granularity.DataRanks``), x is this rank's rows and
+    the aux loss is the global batch's, the same on every rank."""
     logits = torch.matmul(x.float(), params["router"])
     # Pad experts never win routing.
     pad = torch.arange(cfg.moe_experts_eff, device=x.device) >= \
@@ -80,8 +93,12 @@ def router_probs(params: dict, x: torch.Tensor, cfg: ModelConfig):
     # Load-balance aux loss (Switch-style): E * sum_e f_e * p_e.
     e = cfg.moe_experts_eff
     assign = _one_hot(idx[:, 0], e).float()
-    frac = assign.mean(0)
-    mean_p = probs.mean(0)
+    if ranks is None:
+        frac = assign.mean(0)
+        mean_p = probs.mean(0)
+    else:
+        sums = ranks.psum(torch.stack([assign.sum(0), probs.sum(0)]))
+        frac, mean_p = (sums / (x.shape[0] * ranks.n)).unbind(0)
     aux = e * torch.sum(frac * mean_p)
     return w, idx, aux
 
@@ -97,20 +114,28 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return max(8, (c + 7) // 8 * 8)
 
 
-def dispatch_lw_plus(params: dict, x: torch.Tensor, cfg: ModelConfig
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (T, D) -> (y (T, D), aux)."""
+def dispatch_lw_plus(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                     ranks=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (T, D) -> (y (T, D), aux).
+
+    With `ranks`, x is this rank's rows of the global batch: the capacity
+    is the global batch's, and an assignment is kept on its position in
+    the global order (the ranks' rows in block order), while it fills the
+    slot of its position among this rank's rows, which is no larger."""
     t, d = x.shape
     e = cfg.moe_experts_eff
     k = cfg.moe_top_k
-    w, idx, aux = router_probs(params, x, cfg)
+    w, idx, aux = router_probs(params, x, cfg, ranks)
 
-    cap = capacity(cfg, t)
+    cap = capacity(cfg, t if ranks is None else t * ranks.n)
     flat_e = idx.reshape(-1)                                 # (T*k,)
     onehot = _one_hot(flat_e, e)                             # (T*k, E)
     pos = torch.cumsum(onehot, dim=0) - 1                    # position in expert
     pos = torch.sum(pos * onehot, dim=-1)                    # (T*k,)
-    keep = pos < cap                                         # drop overflow
+    if ranks is None:
+        keep = pos < cap                                     # drop overflow
+    else:
+        keep = pos + ranks.before(onehot.sum(0))[flat_e] < cap
     pos_c = torch.where(keep, pos, torch.zeros_like(pos))
 
     xk = x[:, None, :].expand(t, k, d).reshape(-1, d)
@@ -188,16 +213,18 @@ def group_rows(idx: torch.Tensor, n_experts: int, block: int
 
 
 def dispatch_sw_plus(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                     block: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+                     block: int = 128, ranks=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-compact dispatch. x: (T, D) -> (y (T, D), aux).
 
     Launches K3 once and K4 three times (w1, w3, w2); K4 skips the row
-    blocks past :func:`group_rows`, which K3 leaves at zero.
+    blocks past :func:`group_rows`, which K3 leaves at zero. Nothing is
+    dropped, so `ranks` changes the aux loss alone.
     """
     t, d = x.shape
     e = cfg.moe_experts_eff
     k = cfg.moe_top_k
-    w, idx, aux = router_probs(params, x, cfg)
+    w, idx, aux = router_probs(params, x, cfg, ranks)
 
     order, dest, block_expert, t_pad = sort_by_expert(idx, e, block)
     n_rows = group_rows(idx, e, block)
@@ -224,10 +251,15 @@ def dispatch_sw_plus(params: dict, x: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def dispatch_dense_oracle(params: dict, x: torch.Tensor, cfg: ModelConfig
+def dispatch_dense_oracle(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                          kept: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Every expert on every token, combined by router weights (no drops)."""
+    """Every expert on every token, combined by router weights (no drops;
+    with `kept`, a (T, k) mask, only the kept assignments: LW+'s output
+    under its capacity)."""
     w, idx, aux = router_probs(params, x, cfg)
+    if kept is not None:
+        w = w * kept
     h = torch.einsum("td,edf->tef", x, params["w1"])
     h = F.silu(h) * torch.einsum("td,edf->tef", x, params["w3"])
     all_out = torch.einsum("tef,efd->ted", h, params["w2"])  # (T, E, D)
@@ -240,16 +272,18 @@ def dispatch_dense_oracle(params: dict, x: torch.Tensor, cfg: ModelConfig
 def moe_layer(params: dict, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (B, S, D), aux. Routed experts + shared experts."""
+    from repro_torch.core import granularity       # lazy: avoid import cycle
     b, s, d = x.shape
     flat = x.reshape(-1, d)
     if cfg.moe_dispatch == "sw_plus_ep":
-        from repro_torch.core import granularity   # lazy: avoid import cycle
         y, aux = granularity.sw_plus_ep_layer(params, x, cfg)
         y = y.reshape(-1, d)
     elif cfg.moe_dispatch == "sw_plus":
-        y, aux = dispatch_sw_plus(params, flat, cfg)
+        y, aux = dispatch_sw_plus(params, flat, cfg,
+                                  ranks=granularity.data_ranks())
     else:
-        y, aux = dispatch_lw_plus(params, flat, cfg)
+        y, aux = dispatch_lw_plus(params, flat, cfg,
+                                  ranks=granularity.data_ranks())
     y = y.reshape(b, s, d)
     if cfg.moe_shared:
         y = y + mlp_mod.mlp(params["shared"], x, cfg)

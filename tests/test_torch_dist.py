@@ -20,6 +20,13 @@ the elastic restore, the shards' shapes. The prefill and decode arms
 against the port's single-process prefill and decode: rtol 1e-5, atol
 1e-5 (the ranks' products have other row counts).
 
+MoE routing over the data ranks (``ROUTE_CASES``): ``TINY_MOE_CFG`` under
+``tp`` and ``fsdp`` with LW+ at capacity factors 1.25 and 0.5 and with
+SW+, held to the reference's (2, 2) sharded step (loss, ce and aux rtol
+2e-5; grads rtol 1e-3, atol 1e-4; SW+ has no backward, in either
+package, so its loss alone) and to its sharded prefill and decode (rtol
+1e-5, atol 1e-5): the layer routes the global batch, as GSPMD does.
+
 The ``gpu`` tests run ``chip_smoke.py``'s distribution phase (a)–(e) on
 a card, a world of one.
 """
@@ -52,9 +59,11 @@ try:
     from repro import sharding as rsharding
     from repro.checkpoint import ckpt as rckpt
     from repro.core import granularity as rgran
+    from repro.launch import steps as rsteps
     from repro.launch import train as rtrain
     from repro.models import model as rmodel
     from repro.models.config import ModelConfig as RModelConfig
+    from repro.models.config import ShapeConfig as RShapeConfig
     from repro.optim import adamw as radamw
     from repro.optim import compression as rcomp
 except ImportError:     # a machine with a card and no jax: gpu tests only
@@ -75,6 +84,22 @@ TINY_CFG = dict(name="shard-t", family="dense", n_layers=2, d_model=32,
 TINY_MOE_CFG = dict(TINY_CFG, name="shard-moe", family="moe", d_ff=0,
                     moe_experts=4, moe_top_k=2, moe_d_ff=16)
 LAYOUT_CFGS = {"tp": TINY_CFG, "fsdp": TINY_CFG, "swep": TINY_MOE_CFG}
+# MoE routing over the data ranks under tp and fsdp: LW+ at the default
+# capacity factor and at one that drops tokens (the global capacity then
+# differs from a rank's), and SW+ (no drops: the aux term alone). One
+# case recomputes its layers in the backward (remat "full"), where the
+# routing's collectives run again.
+MOE_ROUTE_CFGS = {
+    "lw_plus-cf1.25": dict(TINY_MOE_CFG, moe_capacity_factor=1.25),
+    "lw_plus-cf0.5": dict(TINY_MOE_CFG, moe_capacity_factor=0.5),
+    "sw_plus": dict(TINY_MOE_CFG, moe_dispatch="sw_plus"),
+}
+ROUTE_CASES = {f"{layout}-{name}": (layout, dict(
+    cfg, remat="full" if (layout, name) == ("fsdp", "lw_plus-cf0.5")
+    else "none")) for layout in ("tp", "fsdp")
+    for name, cfg in MOE_ROUTE_CFGS.items()}
+STEP_CASES = dict({layout: (layout, cfg) for layout, cfg in
+                   LAYOUT_CFGS.items()}, **ROUTE_CASES)
 TRAIN_ARGS = ["--arch", "tinyllama-1.1b", "--smoke", "--steps", "6",
               "--batch", "8", "--seq-len", "32", "--ckpt-every", "3",
               "--log-every", "1", "--model-parallel", "2"]
@@ -138,10 +163,12 @@ def _inputs():
     out["compress/a"] = (rng.standard_normal((2, 64)) * 1e-2).astype(f32)
     b = (rng.standard_normal((2, 8, 16)) * 1e-2).astype(f32)
     out["compress/b"] = b.astype(ml_dtypes.bfloat16).astype(f32)
-    for layout, cfg_dict in LAYOUT_CFGS.items():
-        key = "step_" + layout
+    out["step_cases"] = json.dumps(list(STEP_CASES))
+    for case, (layout, cfg_dict) in STEP_CASES.items():
+        key = "step_" + case
         cfg = TModelConfig(**cfg_dict).validate()
         out[key + "/cfg"] = json.dumps(cfg_dict)
+        out[key + "/layout"] = layout
         for path, leaf in ttree.flatten(convert.numpy_params(cfg, 5)):
             out[key + "/params/" + "/".join(path)] = leaf
         out[key + "/tokens"] = rng.integers(0, 64, (4, 16)).astype(np.int32)
@@ -213,11 +240,14 @@ def _reference_compress(inputs):
             "b_bits": np.asarray(red["b"]).view(np.int16)}
 
 
-def _reference_step(inputs, layout):
+def _reference_step(inputs, case):
     """The reference's loss and grads of train_loss on its (2, 2) mesh in
-    `layout`, as tests/test_sharding.py computes them."""
-    key = "step_" + layout
-    cfg = RModelConfig(**LAYOUT_CFGS[layout]).validate()
+    `case`'s layout, as tests/test_sharding.py computes them (a sw_plus
+    MoE: the loss and metrics alone, as pallas_call has no transpose
+    rule); and its prefill and decode arms there, for a MoE."""
+    key = "step_" + case
+    layout, cfg_dict = STEP_CASES[case]
+    cfg = RModelConfig(**cfg_dict).validate()
     if layout == "swep":
         cfg = dataclasses.replace(cfg, moe_dispatch="sw_plus_ep")
     params = jax.tree.map(jnp.asarray, dist_smoke._tree(
@@ -237,17 +267,53 @@ def _reference_step(inputs, layout):
     rgran.set_mesh(mesh, dp)
     try:
         with mesh:
-            (loss, metrics), grads = jax.jit(jax.value_and_grad(
-                lambda p, b: rmodel.train_loss(p, cfg, b, sharder),
-                has_aux=True))(p_sh, b_sh)
+            if cfg.moe_dispatch == "sw_plus":
+                loss, metrics = jax.jit(lambda p, b: rmodel.train_loss(
+                    p, cfg, b, sharder))(p_sh, b_sh)
+                grads = None
+            else:
+                (loss, metrics), grads = jax.jit(jax.value_and_grad(
+                    lambda p, b: rmodel.train_loss(p, cfg, b, sharder),
+                    has_aux=True))(p_sh, b_sh)
     finally:
         rgran.set_mesh(None)
-    return {"loss": float(loss), "ce": float(metrics["ce"]),
-            "tokens": float(metrics["tokens"]),
-            "grad_norm": float(radamw.global_norm(grads)),
-            "grads": {"/".join(str(getattr(k, "key", k)) for k in path):
-                      np.asarray(g) for path, g in
-                      jax.tree_util.tree_flatten_with_path(grads)[0]}}
+    out = {"loss": float(loss), "ce": float(metrics["ce"]),
+           "aux": float(metrics["aux"]), "tokens": float(metrics["tokens"])}
+    if grads is not None:
+        out["grad_norm"] = float(radamw.global_norm(grads))
+        out["grads"] = {"/".join(str(getattr(k, "key", k)) for k in path):
+                        np.asarray(g) for path, g in
+                        jax.tree_util.tree_flatten_with_path(grads)[0]}
+    if case in ROUTE_CASES:
+        out["arms"] = _reference_arms(inputs, key, cfg, layout, params)
+    return out
+
+
+def _reference_arms(inputs, key, cfg, layout, params):
+    """The reference's prefill and one decode step on its (2, 2) mesh,
+    jitted with build_step's shardings."""
+    mesh = _mesh()
+    prompt = jnp.asarray(inputs[key + "/prompt"])
+    pshape = RShapeConfig(name="p", seq_len=int(inputs[key + "/max_len"]),
+                          global_batch=prompt.shape[0], kind="prefill")
+    try:
+        with mesh:
+            pre, _, pin, pout = rsteps.build_step(cfg, pshape, mesh,
+                                                  layout=layout)
+            logits, cache = jax.jit(pre, in_shardings=pin,
+                                    out_shardings=pout)(
+                params, {"tokens": prompt})
+            dec, _, din, dout = rsteps.build_step(
+                cfg, dataclasses.replace(pshape, kind="decode"), mesh,
+                layout=layout)
+            dlogits, cache = jax.jit(dec, in_shardings=din,
+                                     out_shardings=dout)(
+                params, jnp.asarray(inputs[key + "/next"]), cache)
+    finally:
+        rgran.set_mesh(None)
+    return {"prefill_logits": np.asarray(logits),
+            "decode_logits": np.asarray(dlogits),
+            "decode_k": np.asarray(cache["kv"]["k"])}
 
 
 def _plain_arms(inputs, layout):
@@ -286,7 +352,7 @@ def dist_run(tmp_path_factory):
                        work, "train")
         ref = {"ep": _reference_ep(inputs), "oracle": _oracle_grads(inputs),
                "compress": _reference_compress(inputs),
-               "step": {l: _reference_step(inputs, l) for l in LAYOUT_CFGS},
+               "step": {c: _reference_step(inputs, c) for c in STEP_CASES},
                "arms": {l: _plain_arms(inputs, l) for l in ("tp", "fsdp")}}
     finally:
         smoke_text = _finish(smoke, work, "smoke")
@@ -380,6 +446,48 @@ def test_build_step_shards_have_their_spec_shapes(dist_run, layout):
 def test_prefill_and_decode_arms_match_one_process(dist_run, layout, name):
     np.testing.assert_allclose(dist_run["got"][f"step_{layout}/{name}"],
                                dist_run["ref"]["arms"][layout][name],
+                               rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------- MoE routing over the data ranks (tp/fsdp)
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_moe_routing_loss_and_aux_match_reference(dist_run, case):
+    """A MoE layer under tp/fsdp routes the global batch: its balance term
+    and LW+'s capacity and positions are the global batch's."""
+    got, ref = dist_run["got"], dist_run["ref"]["step"][case]
+    key = "step_" + case
+    for name in ("loss", "ce", "aux"):
+        np.testing.assert_allclose(got[f"{key}/{name}"], ref[name],
+                                   rtol=2e-5, err_msg=name)
+    assert float(got[key + "/tokens"]) == ref["tokens"]
+    if "grads" in ref:
+        np.testing.assert_allclose(got[key + "/step_loss"], ref["loss"],
+                                   rtol=2e-5)
+        np.testing.assert_allclose(got[key + "/grad_norm"],
+                                   ref["grad_norm"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", [c for c in ROUTE_CASES
+                                  if "sw_plus" not in c])
+def test_moe_routing_grads_match_reference(dist_run, case):
+    got, ref = dist_run["got"], dist_run["ref"]["step"][case]["grads"]
+    prefix = f"step_{case}/grads/"
+    keys = {k[len(prefix):] for k in got if k.startswith(prefix)}
+    assert keys == set(ref)
+    for k in sorted(keys):
+        np.testing.assert_allclose(got[prefix + k], ref[k], rtol=1e-3,
+                                   atol=1e-4, err_msg=k)
+    assert bool(got[f"step_{case}/shards_ok"])
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+@pytest.mark.parametrize("name", ["prefill_logits", "decode_logits",
+                                  "decode_k"])
+def test_moe_routing_arms_match_reference(dist_run, case, name):
+    np.testing.assert_allclose(dist_run["got"][f"step_{case}/{name}"],
+                               dist_run["ref"]["step"][case]["arms"][name],
                                rtol=1e-5, atol=1e-5)
 
 

@@ -137,6 +137,8 @@ def test_configs_match_reference(arch):
         for prop in ("vocab_padded", "n_q_eff", "n_kv_eff", "kv_repeat",
                      "moe_experts_eff", "d_inner", "ssm_heads", "attn_dim"):
             assert getattr(t, prop) == getattr(r, prop), (arch, prop)
+    assert tregistry.runnable_shapes(arch) == rregistry.runnable_shapes(arch)
+    assert tregistry.LONG_CONTEXT_ARCHS == rregistry.LONG_CONTEXT_ARCHS
 
 
 def test_unknown_arch_and_family_raise():

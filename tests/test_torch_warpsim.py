@@ -137,6 +137,14 @@ for name in ("data.synthetic", "data.loader", "optim.adamw",
              "checkpoint.ckpt", "runtime.fault", "runtime.straggler",
              "launch.steps", "launch.train"):
     __import__("repro_torch." + name)
+# The roofline, dry-run, harness and examples slice's modules, by name.
+for name in ("roofline.report", "roofline.op_analysis", "launch.dryrun",
+             "benchmarks.roofline_table", "benchmarks.moe_dispatch_bench",
+             "benchmarks.sweep_bench", "benchmarks.run",
+             "benchmarks.harness_smoke", "examples.quickstart",
+             "examples.serve_batched", "examples.train_resume",
+             "examples.warpsize_study"):
+    __import__("repro_torch." + name)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not bad, bad
