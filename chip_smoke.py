@@ -209,6 +209,29 @@
    ``warpsize_study``, the drill's checkpoints and the study's cache
    under ``build/``, removed after): exit codes 0.
 
+20. The service fleet on the card (``fleet_phase``), through the port's
+   fleet harnesses; every simulated cell is one one-unit
+   ``ws_family_kernel`` launch, checked by the delta of this process's
+   count against the daemons' ``simulated`` counters plus a worker's
+   cells (the child daemon's by its ``/healthz``), and warm passes
+   launch nothing. (a) The SMALL study (BFS, DYN x ws8, SW+ x seeds 0-1,
+   128 threads) in process against ``data/facade_grid_seeds01.json``.
+   (b) ``chaos_smoke``: a daemon killed mid-study over a shared root, a
+   child daemon whose ``WARPSIM_FAULTS`` plan 503s then drops an ack, a
+   corrupted worker POST and a drain, the heir's records against the
+   same file. (c) ``mesh_smoke``: three daemons
+   over disjoint roots at replication 2, cold and warm, the owner killed
+   (0 to 2 duplicates), a queue job adopted once. (d) ``obs_smoke``:
+   ``/metrics`` over two daemons, one rooted trace, the queue study
+   (seeds 2-3) also against ``engine="torch"`` on the host CPU. (e) The
+   270-cell paper study on one daemon of this process (a mesh of one,
+   cold and warm: the fleets' baseline), then on three: records against
+   the grid file,
+   270 simulations and 270 launches fleet-wide, the warm re-study
+   through another daemon 0 and 0; walls, each daemon's share, peer
+   hits and replicas. (f) Its ``/metrics`` on two daemons:
+   ``warpsim_cells_simulated_total`` 270 fleet-wide, warm 0.
+
 Prints one JSON object of kernel records on the line before the last and
 ``{"ok": true, "device": ...}`` as the last line. Exits non-zero, printing
 no result, without a CUDA device, outside a checkout, or on any mismatch.
@@ -1917,6 +1940,140 @@ def harness_phase(torch, dev, card):
     print(f"harness phase: {time.perf_counter() - t_phase:.3f} s")
 
 
+def _numbers(d) -> dict:
+    """A scenario's numbers without its records and mesh blocks."""
+    return {k: (round(v, 4) if isinstance(v, float) else v)
+            for k, v in d.items() if k not in ("records", "mesh")}
+
+
+def fleet_phase(res, ref, service, card):
+    """Step 20: the service fleet on the card, through the port's chaos,
+    mesh and obs smokes (their daemons in this process, but the chaos
+    smoke's flaky-network daemon, a child). Each smoke checks one
+    ``ws_family_kernel`` launch a simulated cell by delta, none warm.
+    `res` is the main path's 270-cell study, `ref` the grid file's
+    records, `service` phase 6d's numbers."""
+    from repro_torch.benchmarks import (
+        chaos_smoke, facade_parity, mesh_smoke, obs_smoke,
+    )
+    from repro_torch.benchmarks import service_smoke as smoke
+    from repro_torch.core.warpsim import api
+    from repro_torch.core.warpsim.service import SweepClient
+
+    t_phase = time.perf_counter()
+    stamp("fleet (a): the SMALL study in process against the facade grid")
+    facade = {(w["machine"], w["bench"], w["seed"], w["n_threads"]): w
+              for w in facade_parity.reference_records()}
+
+    def grid(study):
+        """The facade grid's records of `study`'s cells, in its order."""
+        return [facade[(m, bench, seed, n)]
+                for m, _cfg, bench, n, seed in study.cells()]
+
+    small = api.Session(device="cuda").run(smoke.small_study(seeds=(0, 1)))
+    check_records(small.records, grid(smoke.small_study(seeds=(0, 1))),
+                  "SMALL study")
+    print(f"SMALL study (BFS, DYN x ws8, SW+ x seeds 0-1, 128 threads): "
+          f"{len(small.records)} records == facade_grid_seeds01.json (bit "
+          f"for bit)")
+    out = {}
+    for name, mod in (("chaos", chaos_smoke), ("mesh", mesh_smoke),
+                      ("obs", obs_smoke)):
+        stamp(f"fleet: {name}_smoke on the card")
+        try:
+            out[name] = mod.run("cuda", small)
+        except smoke.SmokeFailure as e:
+            fail(f"{name}_smoke: {e}")
+        for scenario, nums in out[name].items():
+            print(f"  {name} {scenario}: {_numbers(nums)} [{card}]")
+    check_records(out["chaos"]["worker_drain"]["records"],
+                  grid(smoke.small_study(benches=("BFS",))),
+                  "chaos worker-drain study")
+    print("chaos worker-drain study (BFS, computed on the card by the "
+          "worker, served by the heir) == facade_grid_seeds01.json (bit "
+          "for bit)")
+    cpu = api.Session(device="cpu").run(
+        smoke.small_study(seeds=(2, 3), engine="torch"))
+    check_records(out["obs"]["queue"]["records"],
+                  [facade_parity.encode_record(r) for r in cpu.records],
+                  "obs queue study")
+    print("obs queue study (seeds 2-3, drained by this process on the "
+          "card) == engine='torch' on the host CPU (bit for bit)")
+
+    stamp("fleet (e): the 270-cell paper study on one daemon, then three")
+    study = api.Study(seeds=(0, 1, 2), engine="cuda")
+    # One meshed daemon of this process: the fleets' set-up (threads,
+    # client, GIL) without a peer, so no read-through and no replica.
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        with smoke.mesh_fleet(tmp, "solo", 1, "cuda") as (svcs, urls):
+            n0 = smoke.kernel_launches()
+            t0 = time.perf_counter()
+            one = api.Session(device="cuda", backend=api.ServiceBackend(
+                client=smoke.fleet_client(urls))).run(study)
+            one_cold = time.perf_counter() - t0
+            one_launches = smoke.kernel_launches() - n0
+            n0 = smoke.kernel_launches()
+            t0 = time.perf_counter()
+            one_warm = SweepClient(urls[0], timeout=120.0).study(study)
+            one_warm_s = time.perf_counter() - t0
+            one_counts = (svcs[0].counters["simulated"], one_launches,
+                          one_warm.stats["simulated"],
+                          smoke.kernel_launches() - n0)
+    check_records(one.records, ref, "one in-process daemon's study")
+    check_records(one_warm.records, ref, "one in-process daemon's warm study")
+    if one_counts != (270, 270, 0, 0):
+        fail(f"one in-process daemon: simulated, launches, warm simulated, "
+             f"warm launches {one_counts}")
+    print(f"one daemon of this process (a mesh of one): 270 records == "
+          f"reference grid (bit for bit); cold {one_cold:.4f} s, 270 "
+          f"simulated, 270 launches; warm {one_warm_s:.4f} s, 0 simulated, "
+          f"0 launches [{card}]")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        try:
+            big = mesh_smoke.scenario_cold_then_warm(res, tmp, "cuda",
+                                                     study=study)
+        except smoke.SmokeFailure as e:
+            fail(f"mesh fleet at 270 cells: {e}")
+    check_records(big["records"], ref, "fleet cold study")
+    if (sum(big["simulated"]), big["cold_launches"],
+            big["warm_stats"]["simulated"], big["warm_launches"]) \
+            != (270, 270, 0, 0):
+        fail(f"fleet study: {_numbers(big)}")
+    print(f"fleet of three daemons (disjoint roots, replication "
+          f"{mesh_smoke.REPLICATION}): 270 records == reference grid (bit for "
+          f"bit); cold {big['cold_s']:.4f} s, 270 simulated fleet-wide "
+          f"(by daemon {big['simulated']}), 270 ws_family_kernel launches; "
+          f"warm re-study through daemon 2 {big['warm_s']:.4f} s, 0 "
+          f"simulated, 0 launches; one daemon cold: in this process "
+          f"{one_cold:.4f} s, a child in phase 6d {service['cold_s']:.4f} s "
+          f"[{card}]")
+    print(f"  serving daemon's study stats: cold {big['cold_stats']}; "
+          f"warm {big['warm_stats']}")
+    for i, m in enumerate(big["mesh"]):
+        print(f"  daemon {i}: simulated {big['simulated'][i]}, "
+              + ", ".join(f"{k} {m[k]}" for k in (
+                  "peer_forwards", "peer_hits", "peer_fallbacks",
+                  "peer_serves", "replicas_sent", "replicas_adopted",
+                  "replica_send_failures")))
+
+    stamp("fleet (f): the 270-cell study's metrics on two daemons")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        try:
+            with obs_smoke.mesh_duo(tmp, "cuda") as (svcs, urls):
+                met = obs_smoke.check_metrics(res, svcs, urls, study, "cuda")
+        except smoke.SmokeFailure as e:
+            fail(f"obs metrics at 270 cells: {e}")
+    check_records(met["records"], ref, "metrics cold study")
+    if (sum(met["simulated"]), met["cold_launches"],
+            met["warm_launches"]) != (270, 270, 0):
+        fail(f"fleet metrics: {_numbers(met)}")
+    print(f"two daemons: warpsim_cells_simulated_total {met['simulated']} "
+          f"(270 fleet-wide), 270 launches cold in {met['cold_s']:.4f} s; "
+          f"warm {met['warm_s']:.4f} s, every monotonic sample forward, 0 "
+          f"re-simulations, 0 launches [{card}]")
+    print(f"fleet phase: {time.perf_counter() - t_phase:.3f} s [{card}]")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2174,7 +2331,7 @@ def main() -> None:
 
     # ---- the sweep service on the card -----------------------------------
     stamp("the sweep service on the card")
-    service_phase(torch, ref, built["warpsim_family"][0], card)
+    service = service_phase(torch, ref, built["warpsim_family"][0], card)
 
     # ---- timing per family (seed 0) ---------------------------------------
     stamp("K1/K2 timing per family")
@@ -2289,6 +2446,8 @@ def main() -> None:
     train_phase(torch, dev, card)
     dist_phase(torch, dev, card)
     harness_phase(torch, dev, card)
+    stamp("the service fleet on the card")
+    fleet_phase(res, ref, service, card)
     stamp("done")
     del flash_cases, ssd_cases
     for name in ("flash_attention_kernel", "ssd_scan_kernel"):

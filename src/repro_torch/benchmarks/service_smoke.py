@@ -19,6 +19,9 @@ re-simulation, in-flight dedup, metrics.
 
 On the card the daemon's ``/healthz`` must report engine ``cuda``, and
 its ``ws_family_kernel`` launches must grow by one per simulated cell.
+The module also holds what the fleet smokes (``chaos_smoke``,
+``mesh_smoke``, ``obs_smoke``) share: their study, in-process daemons,
+the health check and the launch contract.
 Exit code 0 iff every check holds::
 
     PYTHONPATH=src python -m repro_torch.benchmarks.service_smoke \\
@@ -40,11 +43,24 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
+from typing import Mapping, Optional
 
+import torch
+
+from repro_torch.core.warpsim import _cuda, api, envcfg, machines
+from repro_torch.core.warpsim.mesh import MeshConfig
 from repro_torch.core.warpsim.obs import parse_exposition
+from repro_torch.core.warpsim.service import (
+    ResilientClient, SweepService, serve,
+)
 
 REPO = str(Path(__file__).resolve().parents[3])
 DEFAULT_FIGS = "fig2,fig4,fig7"
+# The fleet smokes' study (the reference harnesses'): BFS and DYN on ws8
+# and SW+ at 128 threads.
+SMALL = dict(benches=("BFS", "DYN"), n_threads=128)
+# The meshed fleets' replication factor (the reference harnesses').
+REPLICATION = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -66,13 +82,20 @@ def _get_text(url: str, timeout: float = 60.0):
         return resp.headers.get("Content-Type", ""), resp.read().decode()
 
 
-def child_env(url: str = "") -> dict:
+def child_env(url: str = "",
+              extra: Optional[Mapping[str, str]] = None) -> dict:
     """The environment of a child of this harness: ``src`` on the path,
-    and the daemon's URL (or none) for ``Session.from_env``."""
+    the daemon's URL (or none) for ``Session.from_env``, and `extra`, a
+    mapping of registered ``WARPSIM_*`` variables (a daemon's fault plan,
+    the way an operator injects one)."""
+    unknown = sorted(set(extra or ()) - set(envcfg.REGISTRY))
+    if unknown:
+        raise ValueError(f"unregistered variables for a child: {unknown}")
     env = dict(os.environ)
     env["WARPSIM_SERVICE_URL"] = url
     env["PYTHONPATH"] = (os.path.join(REPO, "src") + os.pathsep
                          + env.get("PYTHONPATH", ""))
+    env.update(extra or {})
     return env
 
 
@@ -81,11 +104,93 @@ def launches(url: str) -> int:
     return int(_get(url + "/healthz")["cuda"]["launches"]["ws_family_kernel"])
 
 
+def small_study(**kw) -> api.Study:
+    """The fleet smokes' study: ``SMALL`` on ws8 and SW+, with `kw`."""
+    base = dict(machines={"ws8": machines.baseline(8),
+                          "SW+": machines.sw_plus()}, **SMALL)
+    base.update(kw)
+    return api.Study(**base)
+
+
+def noop_sleep(_seconds) -> None:
+    """A client's backoff that does not wait."""
+
+
+@contextlib.contextmanager
+def daemon(svc):
+    """`svc` (a ``SweepService``) served by a thread of this process on an
+    ephemeral port; yields its URL."""
+    httpd = serve(svc)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        yield "http://%s:%d" % httpd.server_address[:2]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def fleet_client(urls) -> ResilientClient:
+    """The fleet smokes' client over `urls`: retries and fails over
+    without waiting, its breaker never opening."""
+    return ResilientClient(urls, max_retries=8, breaker_threshold=99,
+                           seed=0, sleep=noop_sleep, timeout=120.0)
+
+
+@contextlib.contextmanager
+def mesh_fleet(tmp, tag, members, device="cuda", fault_plans=None):
+    """`members` meshed daemons of this process on `device` over disjoint
+    roots `tmp`/`tag`-N at ``REPLICATION``; `fault_plans`, one a member
+    or ``None``. Yields the services and their URLs."""
+    plans = fault_plans or (None,) * members
+    svcs = [SweepService(f"{tmp}/{tag}-{i}", device=device,
+                         persist_traces=False, mesh=False,
+                         fault_plan=plans[i])
+            for i in range(members)]
+    with contextlib.ExitStack() as stack:
+        urls = [stack.enter_context(daemon(s)) for s in svcs]
+        for svc, url in zip(svcs, urls):
+            svc.configure_mesh(
+                MeshConfig.build(url, urls, replication=REPLICATION))
+            check_health(url, device)
+        yield svcs, urls
+
+
+def check_health(url: str, device) -> dict:
+    """The daemon at `url` is up and computes on `device`: engine ``cuda``
+    on the card, ``torch`` (the kernel's plain version) on the CPU."""
+    health = _get(url + "/healthz")
+    want = (_cuda.resolve_engine("auto", device), str(torch.device(device)))
+    got = (health["engine"], health["device"])
+    check(health["ok"] and got == want,
+          f"{url}/healthz: engine, device {got}, expected {want}")
+    return health
+
+
+def kernel_launches() -> int:
+    """This process's ``ws_family_kernel`` launches so far. Every daemon
+    and worker of the process counts into this one number, so a scenario
+    reads it as a delta."""
+    return _cuda.launch_count("ws_family_kernel")
+
+
+def check_launches(label: str, launched: int, simulated: int,
+                   device) -> int:
+    """One one-unit ``ws_family_kernel`` launch a simulated cell on the
+    card, none on the CPU; returns `launched`."""
+    want = simulated if torch.device(device).type == "cuda" else 0
+    check(launched == want,
+          f"{label}: {launched} ws_family_kernel launches for {simulated} "
+          f"simulated cells on {device}")
+    return launched
+
+
 @contextlib.contextmanager
 def boot_daemon(cache_dir: str, device: str = "cuda",
-                engine: str = "auto", boot_timeout: float = 300.0):
+                engine: str = "auto", boot_timeout: float = 300.0,
+                extra_env: Optional[Mapping[str, str]] = None):
     """A daemon subprocess on an ephemeral port; yields its URL.
 
+    `extra_env` goes to the child's environment (:func:`child_env`).
     Reads the listening line from its output (skipping any warnings
     before it) and stops the daemon on exit, killing it if it does not
     stop within 10 s.
@@ -94,7 +199,7 @@ def boot_daemon(cache_dir: str, device: str = "cuda",
         [sys.executable, "-m", "repro_torch.core.warpsim.service",
          "--port", "0", "--cache-dir", cache_dir, "--device", device,
          "--engine", engine],
-        env=child_env(), cwd=REPO, stdout=subprocess.PIPE,
+        env=child_env(extra=extra_env), cwd=REPO, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     try:
         url = None

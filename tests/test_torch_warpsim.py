@@ -145,6 +145,9 @@ for name in ("roofline.report", "roofline.op_analysis", "launch.dryrun",
              "examples.serve_batched", "examples.train_resume",
              "examples.warpsize_study"):
     __import__("repro_torch." + name)
+# The fleet smokes' modules, by name.
+for name in ("chaos_smoke", "mesh_smoke", "obs_smoke"):
+    __import__("repro_torch.benchmarks." + name)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 assert not bad, bad
