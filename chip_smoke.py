@@ -184,7 +184,15 @@
    at 2 layers, bf16, 4 x 512 tokens: finite losses, step wall, tokens/s
    and peak memory. (e) ``seq_sharded_decode_attention`` at B 8, Sc
    4096, H 16, hd 128 with slots empty, against softmax attention (rtol
-   and atol 1e-5).
+   and atol 1e-5). (f) In a child process (``python -m
+   repro_torch.benchmarks.dist_smoke --rank0 --device cuda``), rank 0's
+   real local step of the dry run's ``tinyllama-1.1b|train_4k|pod16x16``
+   cell under ``layout="tp"``: rank 0 of ``launch.dryrun``'s fake group
+   of 512 ranks (its collectives move nothing, so values are not
+   checked), its own shards of the state on the card from a seed (1/16
+   of every layer over "model", FSDP shards gathered a layer at a time),
+   its 16 x 4096 tokens; three steps: the median wall of steps 2-3 and
+   ``max_memory_allocated``, which must be under 80 GB.
 
 19. The benchmark harness, the dry run and the examples
    (``repro_torch.benchmarks.harness_smoke``). (c) starts first, in a
@@ -1437,7 +1445,7 @@ def ssd_model_check(torch, dev, cfg, params, err):
                            device=dev)
     x = model_lib.embed_inputs(params, cfg, {"tokens": tokens})
     hn = common.rms_norm(x, lp["ssm_norm"], cfg.norm_eps)
-    _z, xs, bc, dt = ssm._project(sp, hn)
+    _z, xs, bc, dt, _, _ = ssm._project(sp, hn, cfg)
     xs_c, _ = ssm._causal_conv(xs, sp["conv_x_w"], sp["conv_x_b"])
     bc_c, _ = ssm._causal_conv(bc, sp["conv_bc_w"], sp["conv_bc_b"])
     xm = xs_c.reshape(1, s, nh, p).float()
@@ -1857,6 +1865,25 @@ def dist_phase(torch, dev, card):
           f"{dist_smoke.DECODE_SHAPE} float32 vs softmax attention: max abs "
           f"err {e['max_abs_err']:.3e} (rtol {dist_smoke.DECODE_TOL[0]}, "
           f"atol {dist_smoke.DECODE_TOL[1]})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stamp("distribution (f): rank 0's local step of the dry run's cell")
+    work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        f = dist_smoke.rank0_check(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"distribution (f): rank 0 of {f['cell']} on the {f['mesh']} "
+          f"mesh of a fake 512-rank group (collectives move nothing; values "
+          f"not checked), its shards ({f['state_bytes'] / 1e6:.3f} MB of "
+          f"state) and {f['rows']} x {f['seq_len']} tokens on the card: "
+          f"step wall (median of steps 2-{dist_smoke.RANK0_STEPS}) "
+          f"{f['step_s']:.4f} s, {f['tokens_per_s']:.1f} tokens/s, peak "
+          f"{f['peak_bytes'] / 1e9:.3f} GB (max_memory_allocated; limit "
+          f"{dist_smoke.CARD_BYTES / 1e9:.0f} GB); walls "
+          f"{[round(x, 4) for x in f['walls']]}; child process "
+          f"{f['child_s']:.3f} s [{card}]")
     print(f"distribution phase: {time.perf_counter() - t_phase:.3f} s")
 
 

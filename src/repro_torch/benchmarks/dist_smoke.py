@@ -24,15 +24,27 @@ cases, on a (2, 2) ("data", "model") mesh unless said:
   every rank's shards of params and AdamW moments must have the shapes
   their specs give; and the prefill and decode arms' logits and cache,
   gathered whole. A ``sw_plus`` MoE (K3 and K4 have no backward) gives
-  ``steps.mesh_loss``'s loss and metrics and its arms.
+  ``steps.mesh_loss``'s loss and metrics and its arms. Beside them, the
+  collectives ``launch.mesh`` issued in the gradient and in the arms, by
+  axis and kind, and the names the sharder checked in a loss and
+  gradient of the case (each a local block of its spec, or it raises).
+* ``live_<remat>``: a dense config of :data:`LIVE_LAYERS` layers under
+  ``fsdp``, one loss and gradient: the most layers whose gathered weights
+  were alive at once (``Sharder.max_live_layers``).
 * ``elastic``: a state on the (2, 2) mesh saved with ``ckpt.save`` and
   ``elastic.recover``-ed onto a mesh of ranks 0 and 1: equal bit for bit
   there, no state on ranks 2 and 3.
 
 On a card (a world of one, NCCL), ``chip_smoke.py``'s distribution
 phase calls :func:`dense_step_check` (a), :func:`moe_check` (b),
-:func:`compression_check` (c), :func:`elastic_check` (d) and
-:func:`decode_check` (e); each raises AssertionError on a failure.
+:func:`compression_check` (c), :func:`elastic_check` (d),
+:func:`decode_check` (e) and :func:`rank0_check` (f); each raises
+AssertionError on a failure. (f) runs, in a child process
+(``--rank0``), rank 0's real local step of the dry run's
+:data:`RANK0_CELL` under ``tp``: rank 0 of ``launch.dryrun``'s fake
+group of 512 ranks (its collectives move nothing, so the values are not
+checked), with its own shards of the state on the card, drawn from a
+seed, and its rows of the global batch.
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ import json
 import math
 import os
 import statistics
+import sys
 import time
 from typing import Any, Dict
 
@@ -65,6 +78,8 @@ from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.optim import adamw, compression
 from repro_torch.runtime import elastic
 
+#: Layers of the ``live_*`` cases.
+LIVE_LAYERS = 4
 #: The layer's tolerance (the reference's, ``tests/test_granularity.py``).
 EP_TOL = (1e-4, 1e-5)
 DECODE_TOL = (1e-5, 1e-5)
@@ -177,6 +192,30 @@ def _expected_local_shape(shape, placements, mesh) -> tuple:
     return tuple(sizes)
 
 
+def _counts_json() -> str:
+    """``launch.mesh``'s collective counts as JSON: {"axis/kind": n}."""
+    return json.dumps({f"{a}/{k}": n for (a, k), n in
+                       sorted(mesh_lib.collective_counts().items())})
+
+
+def _probe(cfg, params, batch, mesh, dp, layout: str):
+    """One loss and gradient of `cfg` in `layout` through a sharder of
+    this call's own: the sharder (its ``checked`` names and
+    ``max_live_layers``) after it."""
+    rows = batch["tokens"].shape[0]
+    sh = sharding.make_sharder(mesh, dp, layout).bind(params, rows=rows)
+    local = steps._local_rows(batch, mesh, dp)
+    with granularity.global_routing(sh.mesh, sh.dp):
+        if cfg.moe_dispatch == "sw_plus":
+            with torch.no_grad():
+                model_lib.train_loss(steps._local_params(params), cfg,
+                                     local, sh, **steps._share(local, sh))
+        else:
+            steps.loss_and_grads(cfg, steps._local_params(params), local,
+                                 sh, **steps._share(local, sh))
+    return sh
+
+
 def step_case(inputs, mesh, out, case: str) -> None:
     """build_step's arms in `case`'s layout and config."""
     key = "step_" + case
@@ -196,9 +235,14 @@ def step_case(inputs, mesh, out, case: str) -> None:
     params = convert.params_from_numpy(_tree(inputs, key + "/params"),
                                        run_cfg, "cpu")
     dp = steps._layout_dp(mesh, b, layout)
+    placed = sharding.distribute_tree(params, mesh, in_pl[0]["params"])
+    sh = _probe(run_cfg, placed, batch, mesh, dp, layout)
+    out[key + "/checked"] = json.dumps(sorted(sh.checked))
+    mesh_lib.reset_counts()
     if cfg.moe_dispatch == "sw_plus":
-        loss, metrics = steps.mesh_loss(cfg, sharding.distribute_tree(
-            params, mesh, in_pl[0]["params"]), batch, mesh, dp)
+        loss, metrics = steps.mesh_loss(cfg, placed, batch, mesh, dp,
+                                        layout)
+        out[key + "/counts"] = _counts_json()
         out[key + "/loss"] = _np(loss)
         for name, m in metrics.items():
             out[f"{key}/{name}"] = _np(m)
@@ -207,7 +251,8 @@ def step_case(inputs, mesh, out, case: str) -> None:
     state = sharding.distribute_tree(
         {"params": params, "opt": adamw.init(params)}, mesh, in_pl[0])
     loss, metrics, shards = steps.mesh_loss_and_grads(
-        run_cfg, state["params"], batch, mesh, dp)
+        run_cfg, state["params"], batch, mesh, dp, layout=layout)
+    out[key + "/counts"] = _counts_json()
     out[key + "/loss"] = _np(loss)
     for name, m in metrics.items():
         out[f"{key}/{name}"] = _np(m)
@@ -238,7 +283,8 @@ def step_case(inputs, mesh, out, case: str) -> None:
 
 def _arms(inputs, mesh, out, key: str, cfg: ModelConfig, layout: str
           ) -> None:
-    """The prefill and decode arms on the step's weights."""
+    """The prefill and decode arms on the step's weights, and the
+    collectives they issued."""
     ptoks = torch.from_numpy(inputs[key + "/prompt"])
     pshape = ShapeConfig(name="p", seq_len=int(inputs[key + "/max_len"]),
                          global_batch=ptoks.shape[0], kind="prefill")
@@ -249,15 +295,39 @@ def _arms(inputs, mesh, out, key: str, cfg: ModelConfig, layout: str
     params = sharding.distribute_tree(
         convert.params_from_numpy(_tree(inputs, key + "/params"), cfg,
                                   "cpu"), mesh, pin[0])
+    mesh_lib.reset_counts()
     logits, cache = pre(params, {"tokens": ptoks})
     _require(tuple(logits.placements) == tuple(pout[0]),
              f"prefill logits placed {logits.placements}, not {pout[0]}")
     out[key + "/prefill_logits"] = _np(sharding.full_tensor(logits))
     nxt = torch.from_numpy(inputs[key + "/next"])
     logits, cache = dec(params, nxt, cache)
+    out[key + "/arm_counts"] = _counts_json()
     out[key + "/decode_logits"] = _np(sharding.full_tensor(logits))
-    out[key + "/decode_k"] = _np(sharding.full_tensor(cache["kv"]["k"]))
+    if "kv" in cache:
+        out[key + "/decode_k"] = _np(sharding.full_tensor(cache["kv"]["k"]))
+    if "ssm" in cache:
+        for name in ("h", "conv_x"):
+            out[f"{key}/decode_{name}"] = _np(sharding.full_tensor(
+                cache["ssm"][name]))
     granularity.set_mesh(None)
+
+
+def live_case(inputs, mesh, out) -> None:
+    """The most layers whose gathered weights were alive at once in one
+    fsdp loss and gradient of :data:`LIVE_LAYERS` layers, per remat
+    policy."""
+    base = _cfg(inputs, "step_fsdp/cfg")
+    tokens = torch.from_numpy(inputs["step_fsdp/tokens"])
+    batch = {"tokens": tokens, "labels": tokens}
+    dp = steps._layout_dp(mesh, tokens.shape[0], "fsdp")
+    for remat in ("none", "full", "dots"):
+        cfg = dataclasses.replace(base, n_layers=LIVE_LAYERS, remat=remat)
+        params = model_lib.init_params(cfg, 0, "cpu")
+        placed = sharding.distribute_tree(params, mesh, sharding.to_placements(
+            mesh, sharding.param_specs(params, "fsdp")))
+        sh = _probe(cfg, placed, batch, mesh, dp, "fsdp")
+        out[f"live_{remat}"] = np.asarray(sh.max_live_layers)
 
 
 def elastic_case(inputs, mesh, out, workdir: str) -> None:
@@ -294,6 +364,7 @@ def run_cases(inputs_path: str, out_path: str) -> None:
     compress_case(inputs, out)
     for case in json.loads(str(inputs["step_cases"])):
         step_case(inputs, mesh, out, case)
+    live_case(inputs, mesh, out)
     workdir = os.path.join(os.path.dirname(os.path.abspath(out_path)),
                            "elastic_ckpt")
     elastic_case(inputs, mesh, out, workdir)
@@ -320,6 +391,12 @@ MOE_ORACLE_CF = 8.0
 SWEP_LAYERS, SWEP_BATCH, SWEP_SEQ, SWEP_STEPS = 2, 4, 512, 3
 #: (e): the sequence-sharded decode's shape and filled slots.
 DECODE_SHAPE = dict(b=8, sc=4096, h=16, hd=128, filled=3000)
+#: (f): the dry-run cell whose rank 0 runs its local step on the card
+#: (arch, shape, layout), the steps (the wall is the median of steps 2
+#: on) and one card's memory, which its peak must stay under.
+RANK0_CELL = ("tinyllama-1.1b", "train_4k", "tp")
+RANK0_STEPS = 3
+CARD_BYTES = 80e9
 
 
 def _timed_steps(step_fn, state, get_batch, n: int, device):
@@ -547,13 +624,124 @@ def decode_check(device) -> dict:
     return {"max_abs_err": float(err.max())}
 
 
+def _rank0_state(struct: dict, placements: dict, mesh, device,
+                 seed: int) -> dict:
+    """Rank 0's shards of a train state of `struct` (meta tensors) laid
+    out by `placements`, as DTensors on `device`: weights from a normal
+    draw (x 0.02) seeded with `seed`, vectors (norms) ones, AdamW moments
+    and step zeros."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def shard(path, t, pl):
+        shape = _expected_local_shape(t.shape, pl, mesh)
+        matrix = t.dim() - ("layers" in path) >= 2
+        if path[0] != "params":
+            local = torch.zeros(shape, dtype=t.dtype, device=device)
+        elif matrix:
+            local = (torch.randn(shape, generator=gen, device=device)
+                     * 0.02).to(t.dtype)
+        else:
+            local = torch.ones(shape, dtype=t.dtype, device=device)
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=t.shape,
+                                  stride=sharding._contiguous_stride(t.shape))
+
+    flat_pl = dict(tree_lib.flatten(placements))
+    return tree_lib.unflatten((path, shard(path, t, flat_pl[path]))
+                              for path, t in tree_lib.flatten(struct))
+
+
+def rank0_step(device, cfg=None, shape=None) -> dict:
+    """(f), in a process of its own: rank 0's local step of
+    :data:`RANK0_CELL` (or `cfg` and `shape`) on the production mesh
+    (16x16), as the dry run builds it, run :data:`RANK0_STEPS` times on
+    `device` with rank 0's shards and rows. Returns the walls, their
+    median from step 2 on, the peak of ``torch.cuda.max_memory_allocated``
+    (on a card) and the cell's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import get_shape
+
+    arch, shape_name, layout = RANK0_CELL
+    cfg = cfg or get_config(arch)
+    shape = shape or get_shape(shape_name)
+    dryrun.init_fake_group()
+    device = model_lib.resolve_device(device)
+    card = device.type == "cuda"
+    mesh = mesh_lib.make_production_mesh(device=device)
+    fn, (st, _), in_pl, _ = steps.build_step(cfg, shape, mesh,
+                                             layout=layout)
+    state = _rank0_state(st, in_pl[0], mesh, device, seed=0)
+    gen = torch.Generator(device=device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (shape.global_batch,
+                                             shape.seq_len),
+                         generator=gen, device=device, dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+    dp = steps._layout_dp(mesh, shape.global_batch, layout)
+    rows = sharding.local_block(toks, mesh, dp).shape[0]
+    if card:
+        torch.cuda.reset_peak_memory_stats(device)
+    walls = []
+    for _ in range(RANK0_STEPS):
+        if card:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, m = fn(state, batch)
+        float(m["loss"])
+        if card:
+            torch.cuda.synchronize(device)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls[1:])
+    return {"cell": f"{cfg.name}|{shape.name}|pod16x16|{layout}",
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "rows": rows, "seq_len": shape.seq_len, "walls": walls,
+            "step_s": wall,
+            "peak_bytes": torch.cuda.max_memory_allocated(device)
+            if card else None,
+            "state_bytes": sum(t.to_local().nbytes
+                               for t in tree_lib.leaves(state)),
+            "tokens_per_s": rows * shape.seq_len / wall}
+
+
+def rank0_check(device, workdir: str) -> dict:
+    """(f) :func:`rank0_step` in a child process (the fake group must be
+    its process's default group): exit 0 and a peak under
+    :data:`CARD_BYTES`; its numbers, and the child's wall."""
+    from repro_torch.benchmarks import harness_smoke as hs
+
+    child = hs.start("rank0", [sys.executable, "-m",
+                               "repro_torch.benchmarks.dist_smoke",
+                               "--rank0", "--device", str(device)], workdir)
+    res = hs.finish(child, timeout=300)
+    hs.check_finished("rank 0's local step", res)
+    lines = [ln for ln in res["stdout"].splitlines() if ln.startswith("{")]
+    _require(bool(lines), f"rank 0's step printed no result: "
+             f"{res['stdout'][-2000:]}")
+    out = dict(json.loads(lines[-1]), child_s=res["wall_s"])
+    _require(out["peak_bytes"] < CARD_BYTES,
+             f"rank 0's step peaked at {out['peak_bytes']} bytes, over "
+             f"{CARD_BYTES:.0f}")
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--device", required=True, choices=("cpu",),
-                    help="the ranks' device: CPU ranks over gloo")
-    ap.add_argument("--inputs", required=True)
-    ap.add_argument("--out", required=True)
+    ap.add_argument("--device", required=True, choices=("cpu", "cuda"),
+                    help="the ranks' device: CPU ranks over gloo; cuda "
+                    "for --rank0 alone")
+    ap.add_argument("--inputs")
+    ap.add_argument("--out")
+    ap.add_argument("--rank0", action="store_true",
+                    help="rank 0's local step of the dry run's "
+                    "tinyllama-1.1b train cell under tp on the card, as "
+                    "one JSON line")
     args = ap.parse_args(argv)
+    if args.rank0:
+        print(json.dumps(rank0_step(args.device)), flush=True)
+        return
+    if args.device != "cpu" or not (args.inputs and args.out):
+        ap.error("the multi-rank cases take --device cpu, --inputs and "
+                 "--out")
     run_cases(args.inputs, args.out)
 
 

@@ -75,11 +75,8 @@ class DataRanks:
         order (an all-gather over each data axis, minor first)."""
         rows = counts[None]
         for a in reversed(self.axes):
-            group = self.mesh.get_group(a)
-            parts = [torch.empty_like(rows)
-                     for _ in range(dist.get_world_size(group))]
-            dist.all_gather(parts, rows.contiguous(), group=group)
-            rows = torch.cat(parts)
+            rows = mesh_lib.all_gather_stack(rows, self.mesh, a).reshape(
+                -1, *counts.shape)
         return rows[:self.index].sum(0)
 
 
@@ -115,9 +112,9 @@ def sw_plus_ep_layer(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
     x: (B_loc, S, D), this rank's rows of the batch (its block over `dp`,
     the same on every rank of the model axis); params: the layer's router
-    and all ``E`` experts (each rank computes with its own ``E / tp``).
-    Returns (y (B_loc, S, D) this rank's rows, aux loss scalar), both the
-    same on every rank of the model axis.
+    and all ``E`` experts, or this rank's own ``E / tp`` (each rank
+    computes with its own). Returns (y (B_loc, S, D) this rank's rows,
+    aux loss scalar), both the same on every rank of the model axis.
     """
     mesh = _MESH
     assert mesh is not None, "granularity.set_mesh(mesh) required for sw_plus_ep"
@@ -136,7 +133,8 @@ def sw_plus_ep_layer(params: dict, x: torch.Tensor, cfg: ModelConfig,
     c_shard = _round_up(
         int(t_loc * k / tp * cfg.moe_capacity_factor) + block, block)
     mine = slice(m_idx * e_loc, (m_idx + 1) * e_loc)
-    w1, w3, w2 = (params[n][mine] for n in ("w1", "w3", "w2"))
+    w1, w3, w2 = (params[n][mine] if params[n].shape[0] == e_eff
+                  else params[n] for n in ("w1", "w3", "w2"))
 
     x_loc = x.reshape(t_loc, d)
     gates, idx, aux = moe_mod.router_probs(params, x_loc, cfg)
@@ -189,6 +187,22 @@ def sw_plus_ep_layer(params: dict, x: torch.Tensor, cfg: ModelConfig,
     if dp:
         aux = mesh_lib.pmean(aux, mesh, dp)
     return y.reshape(b, s, d), aux
+
+
+def sw_plus_ep_layer_tp(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                        sharder) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sw_plus_ep_layer` in a model computed tensor-parallel over
+    the model axis (``models.moe`` under the ``swep`` layout), where the
+    model ranks hold one loss between them rather than a share each: the
+    layer's gradients (psum semantics: each rank's is its share) come
+    out partial, so its input and router enter through Megatron's
+    "copy" and its outputs' gradients are split over the ranks."""
+    if sharder.tp == 1:
+        return sw_plus_ep_layer(params, x, cfg)
+    params = dict(params, router=sharder.copy(params["router"]))
+    y, aux = sw_plus_ep_layer(params, sharder.copy(x), cfg)
+    return (sharder.scale_grad(y, 1.0 / sharder.tp),
+            sharder.scale_grad(aux, 1.0 / sharder.tp))
 
 
 # ---------------------------------------------------------------------------

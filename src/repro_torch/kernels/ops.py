@@ -49,28 +49,31 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, block_expert: torch.Tensor,
                       n_rows=n_rows)
 
 
-def row_maps(src: torch.Tensor, dest: torch.Tensor, t_pad: int):
+def row_maps(src: torch.Tensor, dest: torch.Tensor, t_pad: int,
+             valid: Optional[torch.Tensor] = None):
     """Per destination row: its source row and whether it has one
     (``row_src``, ``row_valid``, both (t_pad,) int32), from
-    ``out[dest[i]] = x[src[i]]``."""
+    ``out[dest[i]] = x[src[i]]`` for every i (where `valid`, if given)."""
     dest = dest.long()
     row_src = torch.zeros((t_pad,), dtype=torch.int32, device=dest.device)
     row_src[dest] = src.to(torch.int32)
     row_valid = torch.zeros((t_pad,), dtype=torch.int32, device=dest.device)
-    row_valid[dest] = 1
+    row_valid[dest] = 1 if valid is None else valid.to(torch.int32)
     return row_src, row_valid
 
 
 def coalesced_gather(x: torch.Tensor, src: torch.Tensor, dest: torch.Tensor,
-                     t_pad: int, block: int = 128) -> torch.Tensor:
-    """out[dest[i]] = x[src[i]]; rows of `out` not hit by `dest` are zero.
+                     t_pad: int, block: int = 128,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """out[dest[i]] = x[src[i]]; rows of `out` not hit by `dest` (or hit
+    where `valid` is False) are zero, and K3 reads no row of `x` for them.
 
     `block` is the reference's row-block size; the Hopper kernel works row
     by row and does not need it.
     """
     del block
     _no_backward("coalesced_gather", x)
-    row_src, row_valid = row_maps(src, dest, t_pad)
+    row_src, row_valid = row_maps(src, dest, t_pad, valid)
     return _gather_k.gather_rows(x, row_src, row_valid, t_pad)
 
 

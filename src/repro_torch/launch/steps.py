@@ -12,18 +12,26 @@ applies AdamW, which updates the state in place (the reference's jitted
 step donates it).
 
 :func:`build_step` adds a device mesh, as the reference's does with
-GSPMD shardings. The state is stored as DTensors in the reference's
-layouts (``sharding.param_specs``): each rank holds its shard of every
-parameter and AdamW moment. A step gathers every parameter and computes
-with the plain model on the rank's rows of the batch (ZeRO-3 storage with
-gathered compute: the reference's math, not its per-layer collectives).
-Each rank's loss is its share of the global mean (its cross-entropy sum
-over the token count of the whole mesh), so the ranks' gradients sum to
-the gradient of the global loss: they leave as ``Partial`` over every
-mesh axis and are redistributed to each parameter's placements (a
-reduce-scatter), where AdamW updates the local shards; the gradient norm
-is global. On a mesh of one rank every redistribution is the identity,
-and the step is the plain step's operations.
+GSPMD shardings, and threads ``sharding.make_sharder``'s callback
+through the model, as the reference does. The state is stored as
+DTensors in the reference's layouts (``sharding.param_specs``): each
+rank holds its shard of every parameter and AdamW moment, and a step
+computes with those shards. Under ``tp`` (and ``swep``) each rank
+computes its own "model" shard of every layer, with Megatron's
+collectives inside the layer; FSDP shards over the data axes are
+gathered one layer at a time (under ``tp`` and ``fsdp``), inside the
+layer's checkpointed body, and their gradients reduce-scattered back
+(``models.model``). The ranks of the "model" axis hold one loss
+between them; each rank's loss is its share of the global mean over
+every other axis (its cross-entropy sum over the token count of those
+axes' ranks), so the gradients are summed over them: a TP-sharded or
+FSDP-gathered gradient leaves its gather already reduce-scattered over
+the data axes, and a parameter's shard is all-reduced over the other
+axes it is replicated on, never over "model" (a parameter every "model"
+rank holds gets the same gradient on each: those used inside a rank's
+shard enter through Megatron's "copy"). AdamW updates the local shards,
+and the gradient norm is global. On a mesh of one rank every collective
+is skipped, and the step is the plain step's operations.
 
 A MoE layer of the ``lw_plus`` or ``sw_plus`` dispatch routes the global
 batch, as the reference's GSPMD step does: each mesh step runs within
@@ -40,7 +48,7 @@ from typing import Any, Dict, Tuple
 import dataclasses
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import sharding
 from repro_torch import tree as tree_lib
@@ -86,16 +94,17 @@ def cache_struct(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
 
 
 def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict,
-                   **share) -> Tuple[torch.Tensor, dict, dict]:
+                   sharder=None, **share) -> Tuple[torch.Tensor, dict, dict]:
     """``jax.value_and_grad(train_loss, has_aux=True)``: (loss, metrics,
     grads), the loss and metrics detached, the grads a tree of the
     parameters' shape and dtypes (zeros where a leaf is unused). Marks
-    every parameter as requiring grad. `share` goes to
-    ``model.train_loss`` (``tokens``, ``aux_weight``)."""
+    every parameter as requiring grad. `sharder` and `share`
+    (``tokens``, ``aux_weight``) go to ``model.train_loss``."""
     flat = tree_lib.flatten(params)
     for _, p in flat:
         p.requires_grad_(True)
-    loss, metrics = model_lib.train_loss(params, cfg, batch, **share)
+    loss, metrics = model_lib.train_loss(
+        params, cfg, batch, sharder or sharding.NO_SHARDER, **share)
     grads = torch.autograd.grad(loss, [p for _, p in flat],
                                 allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
@@ -161,9 +170,10 @@ def make_serve_step(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _gather_params(params: dict) -> dict:
-    """Every parameter whole on this rank (views on a mesh of one)."""
-    return tree_lib.map_leaves(lambda p: sharding.gather(p).detach(), params)
+def _local_params(params: dict) -> dict:
+    """Each DTensor's local shard (the same storage), a leaf of its own
+    for autograd."""
+    return tree_lib.map_leaves(lambda p: p.to_local().detach(), params)
 
 
 def _local_rows(batch: dict, mesh, dp, dim: int = 0) -> dict:
@@ -173,16 +183,13 @@ def _local_rows(batch: dict, mesh, dp, dim: int = 0) -> dict:
             for k, v in batch.items()}
 
 
-def _reduce_grad(g: torch.Tensor, p: DTensor) -> torch.Tensor:
-    """This rank's gradient share (``Partial`` over every mesh axis)
-    summed over the ranks and laid out as the parameter `p`: its local
-    shard."""
-    mesh = p.device_mesh
-    if mesh.size() == 1:
-        return g
-    partial = DTensor.from_local(g, mesh, [Partial()] * mesh.ndim,
-                                 run_check=False)
-    return partial.redistribute(mesh, p.placements).to_local()
+def _reduce_grad(g: torch.Tensor, p: DTensor, sh) -> torch.Tensor:
+    """This rank's gradient share of `p`'s local shard, summed over the
+    loss's axes (``sh.sum_axes``) that its FSDP gather has not summed
+    over already: those `p` is replicated on."""
+    axes = [a for a, pl in zip(p.device_mesh.mesh_dim_names, p.placements)
+            if a in sh.sum_axes and not isinstance(pl, Shard)]
+    return mesh_lib.all_reduce(g, p.device_mesh, axes)
 
 
 def _global_norm(grads: list, placements: list, mesh) -> torch.Tensor:
@@ -202,65 +209,72 @@ def _global_norm(grads: list, placements: list, mesh) -> torch.Tensor:
 
 
 def mesh_loss_and_grads(cfg: ModelConfig, params: dict, batch: dict,
-                        mesh, dp, accum: int = 1):
+                        mesh, dp, accum: int = 1, layout: str = "tp"):
     """The global loss and this rank's gradient shards of one step on
-    `mesh` (see the module's docstring): (loss, metrics, grads), the loss
-    and metrics global (the same on every rank), the grads a list of the
-    local shards of the parameters' DTensors, in ``tree.flatten`` order.
-    `batch` is the global batch (every rank passes the same; with `accum`
-    > 1 in the (accum, b_micro, ...) layout, its rows split on dim 1)."""
-    full = _gather_params(params)
-    local = _local_rows(batch, mesh, dp, 1 if accum > 1 else 0)
+    `mesh` in `layout` (see the module's docstring): (loss, metrics,
+    grads), the loss and metrics global (the same on every rank), the
+    grads a list of the local shards of the parameters' DTensors, in
+    ``tree.flatten`` order. `batch` is the global batch (every rank
+    passes the same; with `accum` > 1 in the (accum, b_micro, ...)
+    layout, its rows split on dim 1)."""
+    dim = 1 if accum > 1 else 0
+    sh = sharding.make_sharder(mesh, dp, layout).bind(
+        params, rows=next(iter(batch.values())).shape[dim])
+    local = _local_params(params)
+    rows = _local_rows(batch, mesh, dp, dim)
 
     def loss_grads(micro):
-        with granularity.global_routing(mesh, dp):
-            return loss_and_grads(cfg, full, micro, **_share(micro, mesh))
+        with granularity.global_routing(sh.mesh, sh.dp):
+            return loss_and_grads(cfg, local, micro, sh, **_share(micro, sh))
 
-    loss, metrics, grads = accumulate(loss_grads, full, local, accum)
-    del full
-    loss, metrics = _global_metrics(loss, metrics, mesh, dp)
-    shards = [_reduce_grad(g, p) for p, g in
+    loss, metrics, grads = accumulate(loss_grads, local, rows, accum)
+    loss, metrics = _global_metrics(loss, metrics, sh)
+    shards = [_reduce_grad(g, p, sh) for p, g in
               zip(tree_lib.leaves(params), tree_lib.leaves(grads))]
     return loss, metrics, shards
 
 
-def _share(micro: dict, mesh) -> dict:
+def _share(micro: dict, sh) -> dict:
     """``train_loss``'s arguments that make a rank's loss its share of
-    the global mean: the mesh's token count and 1/world of the balance
-    term."""
+    the global mean: the token count of the loss's axes' ranks and
+    1/their number of the balance term."""
     count = (micro["labels"] >= 0).sum().float()
     return {"tokens": torch.clamp_min(
-                mesh_lib.all_reduce(count, mesh, "all"), 1.0),
-            "aux_weight": 1.0 / mesh.size()}
+                mesh_lib.all_reduce(count, sh.mesh, sh.sum_axes), 1.0),
+            "aux_weight": 1.0 / mesh_lib.axis_size(sh.mesh, sh.sum_axes)}
 
 
-def _global_metrics(loss, metrics: dict, mesh, dp):
+def _global_metrics(loss, metrics: dict, sh):
     """The global loss and metrics from each rank's share."""
-    world = mesh.size()
-    loss = mesh_lib.all_reduce(loss.clone(), mesh, "all")
+    mesh, axes = sh.mesh, sh.sum_axes
+    n = mesh_lib.axis_size(mesh, axes)
+    loss = mesh_lib.all_reduce(loss.clone(), mesh, axes)
     if metrics:
-        replicas = world // mesh_lib.axis_size(mesh, dp)   # ranks a row is on
-        metrics = {"ce": mesh_lib.all_reduce(metrics["ce"], mesh, "all"),
+        replicas = n // mesh_lib.axis_size(mesh, sh.dp)   # ranks a row is on
+        metrics = {"ce": mesh_lib.all_reduce(metrics["ce"], mesh, axes),
                    "aux": mesh_lib.all_reduce(metrics["aux"], mesh,
-                                              "all") / world,
+                                              axes) / n,
                    "tokens": metrics["tokens"] / replicas}
     return loss, metrics
 
 
 @torch.no_grad()
-def mesh_loss(cfg: ModelConfig, params: dict, batch: dict, mesh, dp):
+def mesh_loss(cfg: ModelConfig, params: dict, batch: dict, mesh, dp,
+              layout: str = "tp"):
     """The global loss and metrics of :func:`mesh_loss_and_grads` without
     gradients: what a config whose layers have no backward (``sw_plus``,
     on K3 and K4) can compute on `mesh`."""
+    sh = sharding.make_sharder(mesh, dp, layout).bind(
+        params, rows=next(iter(batch.values())).shape[0])
     local = _local_rows(batch, mesh, dp)
-    with granularity.global_routing(mesh, dp):
+    with granularity.global_routing(sh.mesh, sh.dp):
         loss, metrics = model_lib.train_loss(
-            _gather_params(params), cfg, local, **_share(local, mesh))
-    return _global_metrics(loss, metrics, mesh, dp)
+            _local_params(params), cfg, local, sh, **_share(local, sh))
+    return _global_metrics(loss, metrics, sh)
 
 
 def make_mesh_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                         mesh, dp, accum: int = 1):
+                         mesh, dp, accum: int = 1, layout: str = "tp"):
     """The train step on `mesh`, over `accum` microbatches.
     ``step_fn(state, batch)`` takes the state as DTensors and the global
     batch (:func:`mesh_loss_and_grads`), updates the state in place and
@@ -270,7 +284,7 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
 
     def step_fn(state, batch):
         loss, metrics, shards = mesh_loss_and_grads(
-            cfg, state["params"], batch, mesh, dp, accum)
+            cfg, state["params"], batch, mesh, dp, accum, layout)
         flat = tree_lib.flatten(state["params"])
         gnorm = _global_norm(shards, [p.placements for _, p in flat], mesh)
         local_state = tree_lib.map_leaves(lambda t: t.to_local(), state)
@@ -283,44 +297,59 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     return step_fn
 
 
+def _done(sh) -> tuple:
+    """The mesh axes a step's outputs are already this rank's block over:
+    the data axes, and the tensor-parallel one."""
+    return sharding._axes(sh.dp) + ((sh.tp_axis,) if sh.tp_axis else ())
+
+
 def make_mesh_prefill_step(cfg: ModelConfig, max_len: int, mesh, dp,
-                           logits_spec, cache_spec):
-    """Prefill on `mesh`: gathered parameters, this rank's rows of the
+                           logits_spec, cache_spec, layout: str = "tp"):
+    """Prefill on `mesh`: the rank's shards, this rank's rows of the
     global batch; returns the logits and the cache as DTensors with
     `logits_spec` / the cache's specs."""
+    base = sharding.make_sharder(mesh, dp, layout)
+
     @torch.no_grad()
     def prefill_step(params, batch):
-        with granularity.global_routing(mesh, dp):
+        sh = base.bind(params, rows=next(iter(batch.values())).shape[0])
+        with granularity.global_routing(sh.mesh, sh.dp):
             logits, cache = model_lib.prefill(
-                _gather_params(params), cfg, _local_rows(batch, mesh, dp),
-                max_len)
-        return (sharding.shard_local(logits, mesh, logits_spec, done=dp),
-                _shard_cache(cache, mesh, cache_spec, dp))
+                _local_params(params), cfg, _local_rows(batch, mesh, dp),
+                max_len, sh)
+        return (sharding.shard_local(logits, mesh, logits_spec,
+                                     done=_done(sh)),
+                _shard_cache(cache, mesh, cache_spec, _done(sh)))
     return prefill_step
 
 
 def make_mesh_serve_step(cfg: ModelConfig, mesh, dp, logits_spec,
-                         cache_spec):
+                         cache_spec, layout: str = "tp"):
     """One decode step on `mesh`: the global tokens, the cache as
-    DTensors with its specs; returns the logits and the cache as
+    DTensors with its specs (its local shards are the rank's heads and
+    channels under ``tp``); returns the logits and the cache as
     DTensors."""
+    base = sharding.make_sharder(mesh, dp, layout)
+
     @torch.no_grad()
     def serve_step(params, tokens, cache):
+        sh = base.bind(params, rows=tokens.shape[0])
         local_cache = tree_lib.map_leaves(
-            lambda t: sharding.gather(t, keep=dp)
+            lambda t: sharding.gather(t, keep=_done(sh))
             if isinstance(t, DTensor) else t, cache)
-        with granularity.global_routing(mesh, dp):
+        with granularity.global_routing(sh.mesh, sh.dp):
             logits, local_cache = model_lib.decode_step(
-                _gather_params(params), cfg,
-                sharding.local_block(tokens, mesh, dp, 0), local_cache)
-        return (sharding.shard_local(logits, mesh, logits_spec, done=dp),
-                _shard_cache(local_cache, mesh, cache_spec, dp))
+                _local_params(params), cfg,
+                sharding.local_block(tokens, mesh, dp, 0), local_cache, sh)
+        return (sharding.shard_local(logits, mesh, logits_spec,
+                                     done=_done(sh)),
+                _shard_cache(local_cache, mesh, cache_spec, _done(sh)))
     return serve_step
 
 
-def _shard_cache(cache: dict, mesh, specs: dict, dp) -> dict:
+def _shard_cache(cache: dict, mesh, specs: dict, done) -> dict:
     return tree_lib.map_leaves(
-        lambda t, s: sharding.shard_local(t, mesh, s, done=dp)
+        lambda t, s: sharding.shard_local(t, mesh, s, done=done)
         if isinstance(t, torch.Tensor) else t, cache, specs)
 
 
@@ -350,7 +379,8 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     if layout == "swep":
         cfg = dataclasses.replace(cfg, moe_dispatch="sw_plus_ep")
     dp = _layout_dp(mesh, shape.global_batch, layout)
-    granularity.set_mesh(mesh, dp)
+    sharder = sharding.make_sharder(mesh, dp, layout)
+    granularity.set_mesh(sharder.mesh, sharder.dp)
     P = sharding.PartitionSpec
 
     if shape.kind == "train":
@@ -368,7 +398,7 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
             ("ce", "aux", "tokens") if accum == 1 else ())
         replicated = (Replicate(),) * mesh.ndim
         out_pl = (in_pl[0], {k: replicated for k in metric_keys})
-        fn = make_mesh_train_step(cfg, opt_cfg, mesh, dp, accum)
+        fn = make_mesh_train_step(cfg, opt_cfg, mesh, dp, accum, layout)
         return fn, (st, bt), in_pl, out_pl
 
     params = state_struct(cfg)["params"]
@@ -385,7 +415,7 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
         in_pl = (p_pl, sharding.to_placements(
             mesh, sharding.batch_specs(bt, dp)))
         fn = make_mesh_prefill_step(cfg, shape.seq_len, mesh, dp,
-                                    logits_spec, cspec)
+                                    logits_spec, cspec, layout)
         return fn, (params, bt), in_pl, (logits_pl, cache_pl)
 
     # decode: one new token with a seq_len-deep cache
@@ -395,6 +425,6 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     else:
         tok = _meta((shape.global_batch, 1), torch.int32)
         tok_pl = sharding.to_placements(mesh, P(dp, None))
-    fn = make_mesh_serve_step(cfg, mesh, dp, logits_spec, cspec)
+    fn = make_mesh_serve_step(cfg, mesh, dp, logits_spec, cspec, layout)
     return fn, (params, tok, cache), (p_pl, tok_pl, cache_pl), (logits_pl,
                                                                 cache_pl)

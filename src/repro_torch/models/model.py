@@ -26,6 +26,18 @@ Everything runs on the device the parameters lie on. Decode updates the
 cache it is given in place (the reference returns a new one), which
 saves a copy of the whole cache each step; it returns the cache as well,
 so callers read the same as in the reference.
+
+As in the reference, a ``sharder(name, x)`` callback
+(``sharding.make_sharder``) comes in from the launch layer, at the
+reference's call points, and the no-op default leaves the plain
+operations. On a mesh it carries the rank's place: the parameters are
+then the rank's local shards, each layer's FSDP shards are gathered
+inside the function the remat policy checkpoints (recomputed in the
+backward, never saved, so a layer's gathered weights die with it), and
+the layers compute their tensor-parallel shards (``attention``, ``mlp``,
+``ssm``, ``moe``). The embedding and the head are vocab-parallel: each
+rank looks up and scores its block of the vocabulary, and the
+cross-entropy's log-sum-exp and target logit are sums over the ranks.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch.utils import checkpoint as torch_checkpoint
 
+from repro_torch import sharding
 from repro_torch import tree as tree_lib
 from repro_torch.models import attention, common, mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
@@ -47,6 +60,7 @@ from repro_torch.models.ssm import init_ssm_cache
 FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _ATTN = ("dense", "moe", "hybrid")
 _SSM = ("ssm", "hybrid")
+_noop_sharder = sharding.NO_SHARDER
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -160,31 +174,34 @@ def unstack_layers(params: dict) -> List[dict]:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig):
+def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig, sharder=_noop_sharder):
     """The layer's MLP or MoE on the normed hidden; returns (y, aux)."""
     hn = common.rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
     if cfg.family == "moe":
-        return moe_mod.moe_layer(lp["moe"], hn, cfg)
-    return mlp_mod.mlp(lp["mlp"], hn, cfg), None
+        return moe_mod.moe_layer(lp["moe"], hn, cfg, sharder)
+    return mlp_mod.mlp(lp["mlp"], hn, cfg, sharder), None
 
 
 def _layer_fwd(lp: dict, x: torch.Tensor, positions: torch.Tensor,
-               cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+               cfg: ModelConfig, sharder=_noop_sharder
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         x = x + ssm_mod.ssm_layer(
-            lp["ssm"], common.rms_norm(x, lp["ssm_norm"], cfg.norm_eps), cfg)
-        return x, aux
+            lp["ssm"], common.rms_norm(x, lp["ssm_norm"], cfg.norm_eps), cfg,
+            sharder=sharder)
+        return sharder("hidden", x), aux
     h = common.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    a = attention.attention(lp["attn"], h, positions, cfg)
+    a = attention.attention(lp["attn"], h, positions, cfg, sharder=sharder)
     if cfg.family == "hybrid":
         hs = common.rms_norm(x, lp["ssm_norm"], cfg.norm_eps)
-        s = ssm_mod.ssm_layer(lp["ssm"], hs, cfg)
+        s = ssm_mod.ssm_layer(lp["ssm"], hs, cfg, sharder=sharder)
         x = x + 0.5 * (a + s)            # parallel heads, mean-fused (Hymba)
     else:
         x = x + a
-    y, a2 = _ffn(lp, x, cfg)
-    return x + y, aux if a2 is None else a2
+    x = sharder("hidden", x)
+    y, a2 = _ffn(lp, x, cfg, sharder)
+    return sharder("hidden", x + y), aux if a2 is None else a2
 
 
 #: Products whose outputs ``"dots"`` keeps: 2-D matmuls, the counterpart
@@ -218,26 +235,47 @@ def _remat_wrap(fn, cfg: ModelConfig):
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                   positions: torch.Tensor
+                   positions: torch.Tensor, sharder=_noop_sharder
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Embedded input (B,S,D) -> final hidden (B,S,D), summed aux loss."""
+    """Embedded input (B,S,D) -> final hidden (B,S,D), summed aux loss.
+    Each layer's FSDP shards are gathered inside the checkpointed body."""
     _check_family(cfg)
-    layer = _remat_wrap(_layer_fwd, cfg)
+
+    def body(lp, x, positions):
+        return _layer_fwd(sharder.layer(lp), x, positions, cfg, sharder)
+
+    layer = _remat_wrap(body, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in unstack_layers(params):
-        x, a = layer(lp, x, positions, cfg)
+        x, a = layer(lp, x, positions)
         aux = aux + a
-    x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = common.rms_norm(
+        x, sharder.gather(params["final_norm"], ("final_norm",)), cfg.norm_eps)
     return x, aux
 
 
-def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
-                 ) -> torch.Tensor:
+def _lookup(params: dict, cfg: ModelConfig, tokens: torch.Tensor, sharder
+            ) -> torch.Tensor:
+    """The embedding rows of `tokens`; vocab-parallel under tensor
+    parallelism (each rank's rows of its block, summed over the ranks:
+    exactly one rank's is not zero)."""
+    table = sharder.gather(params["embed"], ("embed",))
+    tokens = tokens.long()
+    if sharder.tp == 1:
+        return table[tokens]
+    local = tokens - sharder.tp_first(cfg.vocab_padded)
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(inside, local, torch.zeros_like(local))]
+    return sharder.reduce(rows.masked_fill(~inside[..., None], 0))
+
+
+def embed_inputs(params: dict, cfg: ModelConfig, batch: dict,
+                 sharder=_noop_sharder) -> torch.Tensor:
     """tokens (B,S) int or input_embeds (B,S,D) -> (B,S,D)."""
     if "input_embeds" in batch:
         x = batch["input_embeds"].to(param_dtype(cfg))
     else:
-        x = params["embed"][batch["tokens"].long()]
+        x = _lookup(params, cfg, batch["tokens"], sharder)
     if cfg.pos_emb == "sinusoidal":
         s = x.shape[1]
         pe = common.sinusoidal_pos_emb(torch.arange(s, device=x.device),
@@ -246,15 +284,37 @@ def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
     return x
 
 
-def logits_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor
-              ) -> torch.Tensor:
-    """(B,S,D) -> (B,S,V_pad) fp32, pad vocab masked to -1e9."""
-    head = (params["embed"].t() if cfg.tie_embeddings
-            else params["lm_head"])
-    logits = torch.matmul(hidden, head).float()
-    pad = torch.arange(cfg.vocab_padded, device=hidden.device) >= \
-        cfg.vocab_size
-    return logits.masked_fill(pad[None, None, :], -1e9)
+def logits_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
+              sharder=_noop_sharder) -> torch.Tensor:
+    """(B,S,D) -> (B,S,V_pad) fp32, pad vocab masked to -1e9 (under
+    tensor parallelism, the rank's block of the vocabulary)."""
+    head = (sharder.gather(params["embed"], ("embed",)).t()
+            if cfg.tie_embeddings
+            else sharder.gather(params["lm_head"], ("lm_head",)))
+    logits = torch.matmul(sharder.copy(hidden), head).float()
+    first = sharder.tp_first(cfg.vocab_padded)
+    pad = torch.arange(first, first + logits.shape[-1],
+                       device=hidden.device) >= cfg.vocab_size
+    return sharder("logits", logits.masked_fill(pad[None, None, :], -1e9))
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+         sharder) -> torch.Tensor:
+    """logsumexp(logits) - logits[label] over the vocabulary, from the
+    rank's block of it under tensor parallelism (the max, the sum of
+    exponentials and the target logit taken over the ranks)."""
+    if sharder.tp == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return lse - ll
+    m = sharder.amax(logits.detach().amax(-1))
+    lse = m + torch.log(sharder.reduce(
+        torch.exp(logits - m[..., None]).sum(-1)))
+    local = labels - sharder.tp_first(cfg.vocab_padded)
+    inside = (local >= 0) & (local < logits.shape[-1])
+    ll = torch.gather(logits, -1, torch.where(
+        inside, local, torch.zeros_like(local))[..., None])[..., 0]
+    return lse - sharder.reduce(ll.masked_fill(~inside, 0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -263,8 +323,8 @@ def logits_fn(params: dict, cfg: ModelConfig, hidden: torch.Tensor
 
 
 def train_loss(params: dict, cfg: ModelConfig, batch: dict,
-               aux_coeff: float = 0.01, tokens=None, aux_weight=None
-               ) -> Tuple[torch.Tensor, dict]:
+               sharder=_noop_sharder, aux_coeff: float = 0.01, tokens=None,
+               aux_weight=None) -> Tuple[torch.Tensor, dict]:
     """Mean next-token cross-entropy over the labels >= 0, plus the MoE
     load-balance loss times `aux_coeff` over the layers. Returns (total,
     {ce, aux, tokens}), 0-dim float32 tensors.
@@ -272,17 +332,15 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict,
     A rank of a mesh passes its share of the global loss: `tokens`, the
     count its cross-entropy sum is divided by (default: this batch's
     labels >= 0), and `aux_weight`, which scales its load-balance term."""
-    x = embed_inputs(params, cfg, batch)
+    x = sharder("hidden", embed_inputs(params, cfg, batch, sharder))
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
-    hidden, aux = forward_hidden(params, cfg, x, positions)
-    logits = logits_fn(params, cfg, hidden)
+    hidden, aux = forward_hidden(params, cfg, x, positions, sharder)
+    logits = logits_fn(params, cfg, hidden, sharder)
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
     safe = torch.clamp_min(labels, 0)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
-    nll = (lse - ll) * mask
+    nll = _nll(logits, safe, cfg, sharder) * mask
     denom = torch.clamp_min(mask.sum(), 1.0) if tokens is None else tokens
     ce = nll.sum() / denom
     aux_term = aux_coeff * aux / max(cfg.n_layers, 1)
@@ -298,14 +356,16 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict,
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
-                      device="cuda") -> dict:
+                      device="cuda", tp: int = 1) -> dict:
+    """The decode cache of `batch` rows (a rank's heads and channels of
+    ``tp``)."""
     _check_family(cfg)
     dt = param_dtype(cfg)
     cache: Dict[str, Any] = {}
     if cfg.family in _ATTN:
-        cache["kv"] = init_cache(cfg, batch, max_len, dt, device)
+        cache["kv"] = init_cache(cfg, batch, max_len, dt, device, tp)
     if cfg.family in _SSM:
-        cache["ssm"] = init_ssm_cache(cfg, batch, dt, device)
+        cache["ssm"] = init_ssm_cache(cfg, batch, dt, device, tp)
     return cache
 
 
@@ -318,37 +378,39 @@ def _put_ssm(sc: dict, i: int, conv_x: torch.Tensor, conv_bc: torch.Tensor,
 
 
 def _ssm_prefill(lp: dict, h: torch.Tensor, cfg: ModelConfig, sc: dict,
-                 i: int) -> torch.Tensor:
+                 i: int, sharder) -> torch.Tensor:
     """Layer `i`'s SSM block over the prompt; keeps its decode state."""
     hn = common.rms_norm(h, lp["ssm_norm"], cfg.norm_eps)
     y, cx, cbc, hstate = ssm_mod.ssm_layer(lp["ssm"], hn, cfg,
-                                           return_cache=True)
+                                           return_cache=True,
+                                           sharder=sharder)
     _put_ssm(sc, i, cx, cbc, hstate)
     return y
 
 
 def _ssm_decode(lp: dict, h: torch.Tensor, cfg: ModelConfig, sc: dict,
-                i: int) -> torch.Tensor:
+                i: int, sharder) -> torch.Tensor:
     """Layer `i`'s SSM block for one token; updates its decode state."""
     hn = common.rms_norm(h, lp["ssm_norm"], cfg.norm_eps)
     y, cx, cbc, hst = ssm_mod.ssm_decode_step(
-        lp["ssm"], hn, sc["conv_x"][i], sc["conv_bc"][i], sc["h"][i], cfg)
+        lp["ssm"], hn, sc["conv_x"][i], sc["conv_bc"][i], sc["h"][i], cfg,
+        sharder)
     _put_ssm(sc, i, cx, cbc, hst)
     return y
 
 
-def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int
-            ) -> Tuple[torch.Tensor, dict]:
+def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int,
+            sharder=_noop_sharder) -> Tuple[torch.Tensor, dict]:
     """Run the prompt, build the decode cache.
 
     Returns (last-position logits (B, V_pad), cache).
     """
     _check_family(cfg)
-    x = embed_inputs(params, cfg, batch)
+    x = sharder("hidden", embed_inputs(params, cfg, batch, sharder))
     dev = x.device
     b, s = x.shape[:2]
     positions = torch.arange(s, device=dev)
-    cache = init_decode_cache(cfg, b, max_len, dev)
+    cache = init_decode_cache(cfg, b, max_len, dev, sharder.tp)
     kv, sc = cache.get("kv"), cache.get("ssm")
     if kv is not None:
         # keep the last S_cache tokens, at ring slots pos % S_cache so
@@ -359,14 +421,17 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int
 
     h = x
     for i, lp in enumerate(unstack_layers(params)):
+        lp = sharder.layer(lp)
         if cfg.family == "ssm":
-            h = h + _ssm_prefill(lp, h, cfg, sc, i)
+            h = sharder("hidden", h + _ssm_prefill(lp, h, cfg, sc, i,
+                                                   sharder))
             continue
         hn = common.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = attention._project_qkv(lp["attn"], hn, positions, cfg)
+        q, k, v = attention._project_qkv(lp["attn"], hn, positions, cfg,
+                                         sharder)
         a = attention.flash_attention(q, k, v, positions, positions,
                                       cfg.sliding_window)
-        a = attention._finish(lp["attn"], a, cfg)
+        a = attention._finish(lp["attn"], a, cfg, sharder)
         if cfg.kv_cache_dtype == "int8":
             kq, ks = attention.quantize_kv(k[:, s - keep:])
             vq, vs = attention.quantize_kv(v[:, s - keep:])
@@ -378,13 +443,14 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int
             kv["k"][i][:, slots] = k[:, s - keep:]
             kv["v"][i][:, slots] = v[:, s - keep:]
         if cfg.family == "hybrid":
-            h = h + 0.5 * (a + _ssm_prefill(lp, h, cfg, sc, i))
+            h = h + 0.5 * (a + _ssm_prefill(lp, h, cfg, sc, i, sharder))
         else:
             h = h + a
-        y, _ = _ffn(lp, h, cfg)
-        h = h + y
-    hidden = common.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = logits_fn(params, cfg, hidden[:, -1:])[:, 0]
+        y, _ = _ffn(lp, h, cfg, sharder)
+        h = sharder("hidden", h + y)
+    hidden = common.rms_norm(
+        h, sharder.gather(params["final_norm"], ("final_norm",)), cfg.norm_eps)
+    logits = logits_fn(params, cfg, hidden[:, -1:], sharder)[:, 0]
 
     if kv is not None:
         kv["positions"][slots] = torch.arange(s - keep, s, dtype=torch.int32,
@@ -394,8 +460,8 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int
 
 
 def decode_step(params: dict, cfg: ModelConfig,
-                token_or_embed: torch.Tensor, cache: dict
-                ) -> Tuple[torch.Tensor, dict]:
+                token_or_embed: torch.Tensor, cache: dict,
+                sharder=_noop_sharder) -> Tuple[torch.Tensor, dict]:
     """One decode step.
 
     token_or_embed: (B, 1) int tokens or (B, 1, D) embeddings.
@@ -406,7 +472,7 @@ def decode_step(params: dict, cfg: ModelConfig,
     _check_family(cfg)
     kv, sc = cache.get("kv"), cache.get("ssm")
     if token_or_embed.dim() == 2:
-        x = params["embed"][token_or_embed.long()]
+        x = _lookup(params, cfg, token_or_embed, sharder)
     else:
         x = token_or_embed.to(param_dtype(cfg))
     pos = int(kv["index"]) if kv is not None else 0   # current position
@@ -423,11 +489,12 @@ def decode_step(params: dict, cfg: ModelConfig,
 
     h = x
     for i, lp in enumerate(unstack_layers(params)):
+        lp = sharder.layer(lp)
         if cfg.family == "ssm":
-            h = h + _ssm_decode(lp, h, cfg, sc, i)
+            h = h + _ssm_decode(lp, h, cfg, sc, i, sharder)
             continue
         hn = common.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        k1, v1 = attention.decode_kv(lp["attn"], hn, pos, cfg)
+        k1, v1 = attention.decode_kv(lp["attn"], hn, pos, cfg, sharder)
         if cfg.kv_cache_dtype == "int8":
             k1q, k1s = attention.quantize_kv(k1)
             v1q, v1s = attention.quantize_kv(v1)
@@ -444,16 +511,17 @@ def decode_step(params: dict, cfg: ModelConfig,
             kv["v"][i][:, slot] = v1
             layer_k, layer_v = kv["k"][i], kv["v"][i]
         a = attention.decode_attention(lp["attn"], hn, layer_k, layer_v,
-                                       kv["positions"], pos, cfg)
+                                       kv["positions"], pos, cfg, sharder)
         if cfg.family == "hybrid":
-            h = h + 0.5 * (a + _ssm_decode(lp, h, cfg, sc, i))
+            h = h + 0.5 * (a + _ssm_decode(lp, h, cfg, sc, i, sharder))
         else:
             h = h + a
-        y, _ = _ffn(lp, h, cfg)
+        y, _ = _ffn(lp, h, cfg, sharder)
         h = h + y
 
-    hidden = common.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = logits_fn(params, cfg, hidden)[:, 0]
+    hidden = common.rms_norm(
+        h, sharder.gather(params["final_norm"], ("final_norm",)), cfg.norm_eps)
+    logits = logits_fn(params, cfg, hidden, sharder)[:, 0]
     if kv is not None:
         kv["index"] = pos + 1
     return logits, cache

@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import Init
@@ -114,17 +115,34 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return max(8, (c + 7) // 8 * 8)
 
 
+def _my_experts(params: dict, cfg: ModelConfig, sh) -> Tuple[int, int]:
+    """(first, count) of the rank's experts: its block of ``w1``'s, all
+    of them without tensor parallelism."""
+    return sh.tp_first(cfg.moe_experts_eff), params["w1"].shape[0]
+
+
 def dispatch_lw_plus(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                     ranks=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     ranks=None, sharder=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, D) -> (y (T, D), aux).
 
     With `ranks`, x is this rank's rows of the global batch: the capacity
     is the global batch's, and an assignment is kept on its position in
     the global order (the ranks' rows in block order), while it fills the
-    slot of its position among this rank's rows, which is no larger."""
+    slot of its position among this rank's rows, which is no larger.
+
+    On a mesh in a tensor-parallel layout (a `sharder` with a TP axis)
+    the rank computes its own experts' slice of the capacity buffer,
+    ``expert_in`` of the reference's spec P(TP, FSDP, None): each
+    assignment fills the slot of its global position, the ranks' buffers
+    are summed and cut over "data" (a reduce-scatter; over "pod" a sum)
+    and the outputs gathered back; the combine is the ranks' sum over
+    "model"."""
+    sh = sharder or sharding.NO_SHARDER
     t, d = x.shape
     e = cfg.moe_experts_eff
     k = cfg.moe_top_k
+    first, e_loc = _my_experts(params, cfg, sh)
     w, idx, aux = router_probs(params, x, cfg, ranks)
 
     cap = capacity(cfg, t if ranks is None else t * ranks.n)
@@ -132,27 +150,41 @@ def dispatch_lw_plus(params: dict, x: torch.Tensor, cfg: ModelConfig,
     onehot = _one_hot(flat_e, e)                             # (T*k, E)
     pos = torch.cumsum(onehot, dim=0) - 1                    # position in expert
     pos = torch.sum(pos * onehot, dim=-1)                    # (T*k,)
+    split = sh.capacity_split()
     if ranks is None:
         keep = pos < cap                                     # drop overflow
     else:
-        keep = pos + ranks.before(onehot.sum(0))[flat_e] < cap
+        pos_g = pos + ranks.before(onehot.sum(0))[flat_e]
+        keep = pos_g < cap
+        if split:
+            pos = pos_g
+    if e_loc != e:
+        keep = keep & (flat_e >= first) & (flat_e < first + e_loc)
+        flat_e = torch.where(keep, flat_e - first, torch.zeros_like(flat_e))
     pos_c = torch.where(keep, pos, torch.zeros_like(pos))
 
-    xk = x[:, None, :].expand(t, k, d).reshape(-1, d)
+    x_in = sh.copy(x)
+    xk = x_in[:, None, :].expand(t, k, d).reshape(-1, d)
     contrib = torch.where(keep[:, None], xk, torch.zeros_like(xk))
-    expert_in = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+    expert_in = torch.zeros((e_loc, cap, d), dtype=x.dtype, device=x.device)
     expert_in.index_put_((flat_e, pos_c), contrib, accumulate=True)
+    if split:
+        expert_in = sh.scatter_capacity(expert_in)
+    expert_in = sh("expert_in", expert_in, capacity=cap)
 
     h = torch.einsum("ecd,edf->ecf", expert_in, params["w1"])
     h = F.silu(h) * torch.einsum("ecd,edf->ecf", expert_in, params["w3"])
     out = torch.einsum("ecf,efd->ecd", h, params["w2"])
+    out = sh("expert_in", out, capacity=cap)
+    if split:
+        out = sh.gather_capacity(out, cap)
 
     gathered = out[flat_e, pos_c]                            # (T*k, D)
     gathered = torch.where(keep[:, None], gathered,
                            torch.zeros_like(gathered))
-    y = torch.sum(gathered.reshape(t, k, d) * w[..., None].to(x.dtype),
-                  dim=1)
-    return y, aux
+    y = torch.sum(gathered.reshape(t, k, d)
+                  * sh.copy(w)[..., None].to(x.dtype), dim=1)
+    return sh.reduce(y), aux
 
 
 # ---------------------------------------------------------------------------
@@ -213,25 +245,44 @@ def group_rows(idx: torch.Tensor, n_experts: int, block: int
 
 
 def dispatch_sw_plus(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                     block: int = 128, ranks=None
+                     block: int = 128, ranks=None, sharder=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-compact dispatch. x: (T, D) -> (y (T, D), aux).
 
     Launches K3 once and K4 three times (w1, w3, w2); K4 skips the row
     blocks past :func:`group_rows`, which K3 leaves at zero. Nothing is
     dropped, so `ranks` changes the aux loss alone.
+
+    Under tensor parallelism the rank's experts' groups come first and
+    the other assignments form one group after them, which K3 leaves at
+    zero without reading a row and K4 skips: K3 and K4 see only the rows
+    routed to the rank's experts. The combine is the ranks' sum.
     """
+    sh = sharder or sharding.NO_SHARDER
     t, d = x.shape
     e = cfg.moe_experts_eff
     k = cfg.moe_top_k
+    first, e_loc = _my_experts(params, cfg, sh)
     w, idx, aux = router_probs(params, x, cfg, ranks)
 
-    order, dest, block_expert, t_pad = sort_by_expert(idx, e, block)
-    n_rows = group_rows(idx, e, block)
+    valid = None
+    if e_loc == e:
+        groups, n_groups = idx, e
+    else:
+        mine = (idx >= first) & (idx < first + e_loc)
+        groups = torch.where(mine, idx - first, torch.full_like(idx, e_loc))
+        n_groups = e_loc + 1
+    order, dest, block_expert, t_pad = sort_by_expert(groups, n_groups,
+                                                      block)
+    _, padded = _group_sizes(groups.reshape(-1).long(), n_groups, block)
+    n_rows = padded[:e_loc].sum().to(torch.int32)
+    if e_loc != e:
+        valid = groups.reshape(-1)[order] < e_loc
+        block_expert = torch.clamp_max(block_expert, e_loc - 1)
     token_src = order // k                                   # source rows
     # Dynamic coalescing: gather token rows into expert-contiguous layout.
     x_sorted = kernel_ops.coalesced_gather(x, token_src, dest, t_pad,
-                                           block=block)
+                                           block=block, valid=valid)
 
     h1 = kernel_ops.moe_gmm(x_sorted, params["w1"], block_expert, block,
                             n_rows)
@@ -243,7 +294,7 @@ def dispatch_sw_plus(params: dict, x: torch.Tensor, cfg: ModelConfig,
     flat_w = w.reshape(-1).to(x.dtype)
     y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
     y.index_add_(0, token_src, out[dest] * flat_w[order][:, None])
-    return y, aux
+    return sh.reduce(y), aux
 
 
 # ---------------------------------------------------------------------------
@@ -269,22 +320,23 @@ def dispatch_dense_oracle(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return y, aux
 
 
-def moe_layer(params: dict, x: torch.Tensor, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_layer(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              sharder=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (B, S, D), aux. Routed experts + shared experts."""
     from repro_torch.core import granularity       # lazy: avoid import cycle
+    sh = sharder or sharding.NO_SHARDER
     b, s, d = x.shape
     flat = x.reshape(-1, d)
     if cfg.moe_dispatch == "sw_plus_ep":
-        y, aux = granularity.sw_plus_ep_layer(params, x, cfg)
+        y, aux = granularity.sw_plus_ep_layer_tp(params, x, cfg, sh)
         y = y.reshape(-1, d)
     elif cfg.moe_dispatch == "sw_plus":
         y, aux = dispatch_sw_plus(params, flat, cfg,
-                                  ranks=granularity.data_ranks())
+                                  ranks=granularity.data_ranks(), sharder=sh)
     else:
         y, aux = dispatch_lw_plus(params, flat, cfg,
-                                  ranks=granularity.data_ranks())
+                                  ranks=granularity.data_ranks(), sharder=sh)
     y = y.reshape(b, s, d)
     if cfg.moe_shared:
-        y = y + mlp_mod.mlp(params["shared"], x, cfg)
+        y = y + mlp_mod.mlp(params["shared"], x, cfg, sh)
     return y, aux

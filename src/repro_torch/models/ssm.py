@@ -18,6 +18,17 @@ the chunk with ``dt = 0``, and softplus(0) = ln 2, so the padded steps
 still decay the state. ``y`` is sliced back and is right; ``h_final`` of a
 prompt longer than the chunk and not a multiple of it is not, and decode
 starts from it, in both packages.
+
+Under tensor parallelism (a ``sharder`` with ``tp`` > 1) a rank computes
+its own channels and heads, as the reference's layout shards them:
+``z_proj``/``x_proj`` are its column shards (``d_inner / tp`` channels,
+``ssm_heads / tp`` heads), ``conv_x_*``, ``norm``, ``A_log``, ``D`` and
+``dt_bias`` its slices, ``out_proj`` its row shard, whose partial output
+is summed over the ranks. ``bc_proj``, ``dt_proj`` and ``conv_bc_*``
+stay whole on every rank (through Megatron's "copy", as each rank uses
+them for its heads alone), and ``dt`` is cut to the rank's heads. The
+gated RMSNorm's mean of squares runs over the whole ``d_inner``: a sum
+over the ranks. The decode state holds the rank's channels and heads.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
 
@@ -74,11 +86,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
-                   device="cuda") -> dict:
+                   device="cuda", tp: int = 1) -> dict:
     """Stacked per-layer SSM decode state (plain dict):
-    conv_x (L,B,K-1,di), conv_bc (L,B,K-1,2gn), h (L,B,nh,P,N) fp32."""
-    di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
-    nh, p = cfg.ssm_heads, cfg.ssm_headdim
+    conv_x (L,B,K-1,di), conv_bc (L,B,K-1,2gn), h (L,B,nh,P,N) fp32 (a
+    rank's ``di / tp`` channels and ``nh / tp`` heads with `tp` > 1)."""
+    di, g, n = cfg.d_inner // tp, cfg.ssm_groups, cfg.ssm_state
+    nh, p = cfg.ssm_heads // tp, cfg.ssm_headdim
     km1 = cfg.ssm_conv - 1
     L = cfg.n_layers
     return {
@@ -170,42 +183,75 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y[:, :s_orig].to(x.dtype), h
 
 
-def _project(params: dict, xin: torch.Tensor):
+def _project(params: dict, xin: torch.Tensor, cfg: ModelConfig,
+             sh=sharding.NO_SHARDER):
+    """The input projections; `dt` and the conv_bc weights for the rank's
+    heads (whole without tensor parallelism)."""
+    if cfg.ssm_heads % sh.tp:
+        raise ValueError(
+            f"{cfg.name}: {cfg.ssm_heads} SSM heads do not divide over "
+            f"{sh.tp} model ranks (set tp_divisor)")
+    xin = sh.copy(xin)
     z = torch.matmul(xin, params["z_proj"])
     xs = torch.matmul(xin, params["x_proj"])
-    bc = torch.matmul(xin, params["bc_proj"])
-    dt = torch.matmul(xin, params["dt_proj"])
-    return z, xs, bc, dt
+    bc = torch.matmul(xin, sh.copy(params["bc_proj"]))
+    dt = torch.matmul(xin, sh.copy(params["dt_proj"]))
+    if sh.tp > 1:
+        nh = params["A_log"].shape[0]
+        dt = dt[..., sh.tp_rank * nh:(sh.tp_rank + 1) * nh]
+    return z, xs, bc, dt, sh.copy(params["conv_bc_w"]), \
+        sh.copy(params["conv_bc_b"])
+
+
+def _heads_bc(b: torch.Tensor, cfg: ModelConfig, sh, nh: int
+              ) -> torch.Tensor:
+    """(..., g, N) B or C -> the groups of the rank's `nh` heads, one a
+    head (itself without tensor parallelism)."""
+    if sh.tp == 1:
+        return b
+    rep = cfg.ssm_heads // cfg.ssm_groups
+    first = sh.tp_rank * nh
+    return b.repeat_interleave(rep, dim=-2)[..., first:first + nh, :]
 
 
 def _gate_out(params: dict, y: torch.Tensor, z: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
-    """rms_norm(y * silu(z)) @ out_proj, with the reference's casts."""
-    y = common.rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm"],
-                        cfg.norm_eps)
-    return torch.matmul(y, params["out_proj"])
+              cfg: ModelConfig, sh) -> torch.Tensor:
+    """rms_norm(y * silu(z)) @ out_proj, with the reference's casts; under
+    tensor parallelism the norm's mean of squares is over every rank's
+    channels and the output the ranks' sum."""
+    y = y * F.silu(z.float()).to(y.dtype)
+    if sh.tp == 1:
+        y = common.rms_norm(y, params["norm"], cfg.norm_eps)
+    else:
+        yf = y.float()
+        var = sh.psum(torch.sum(yf * yf, dim=-1, keepdim=True)) / cfg.d_inner
+        y = (yf * torch.rsqrt(var + cfg.norm_eps)
+             * params["norm"].float()).to(y.dtype)
+    return sh.reduce(torch.matmul(y, params["out_proj"]))
 
 
 def ssm_layer(params: dict, xin: torch.Tensor, cfg: ModelConfig,
-              return_cache: bool = False):
+              return_cache: bool = False, sharder=None):
     """Full-sequence Mamba2 block. xin: (B,S,D) -> (B,S,D).
 
     With ``return_cache=True`` also returns (conv_x, conv_bc, h_final) for
     switching into decode after prefill.
     """
-    z, xs, bc, dt = _project(params, xin)
+    sh = sharder or sharding.NO_SHARDER
+    z, xs, bc, dt, cbc_w, cbc_b = _project(params, xin, cfg, sh)
     xs_c, _ = _causal_conv(xs, params["conv_x_w"], params["conv_x_b"])
-    bc_c, _ = _causal_conv(bc, params["conv_bc_w"], params["conv_bc_b"])
-    di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
-    bsz, s = xs_c.shape[:2]
-    x = xs_c.reshape(bsz, s, cfg.ssm_heads, cfg.ssm_headdim)
+    bc_c, _ = _causal_conv(bc, cbc_w, cbc_b)
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    bsz, s, di = xs_c.shape
+    nh = di // cfg.ssm_headdim
+    x = xs_c.reshape(bsz, s, nh, cfg.ssm_headdim)
     b, c = torch.chunk(bc_c, 2, dim=-1)
-    b = b.reshape(bsz, s, g, n)
-    c = c.reshape(bsz, s, g, n)
+    b = _heads_bc(b.reshape(bsz, s, g, n), cfg, sh, nh)
+    c = _heads_bc(c.reshape(bsz, s, g, n), cfg, sh, nh)
     dt = dt.float() + params["dt_bias"][None, None, :]
     y, h_last = ssd_scan(x, dt, params["A_log"], b, c, params["D"],
                          cfg.ssm_chunk)
-    out = _gate_out(params, y.reshape(bsz, s, di), z, cfg)
+    out = _gate_out(params, y.reshape(bsz, s, di), z, cfg, sh)
     if return_cache:
         k = cfg.ssm_conv
 
@@ -225,22 +271,23 @@ def ssm_layer(params: dict, xin: torch.Tensor, cfg: ModelConfig,
 
 def ssm_decode_step(params: dict, xin: torch.Tensor, conv_x: torch.Tensor,
                     conv_bc: torch.Tensor, h: torch.Tensor,
-                    cfg: ModelConfig):
+                    cfg: ModelConfig, sharder=None):
     """One token. xin: (B,1,D); conv_x: (B,K-1,di); conv_bc: (B,K-1,2gn);
     h: (B,nh,P,N) fp32. Returns (y (B,1,D), conv_x', conv_bc', h')."""
-    z, xs, bc, dt = _project(params, xin)
+    sh = sharder or sharding.NO_SHARDER
+    z, xs, bc, dt, cbc_w, cbc_b = _project(params, xin, cfg, sh)
     xs_c, new_conv_x = _causal_conv(xs, params["conv_x_w"],
                                     params["conv_x_b"], state=conv_x)
-    bc_c, new_conv_bc = _causal_conv(bc, params["conv_bc_w"],
-                                     params["conv_bc_b"], state=conv_bc)
-    di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
-    bsz = xs_c.shape[0]
-    nh, p = cfg.ssm_heads, cfg.ssm_headdim
+    bc_c, new_conv_bc = _causal_conv(bc, cbc_w, cbc_b, state=conv_bc)
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    bsz, _, di = xs_c.shape
+    p = cfg.ssm_headdim
+    nh = di // p
     x = xs_c[:, 0].reshape(bsz, nh, p).float()
     b, c = torch.chunk(bc_c[:, 0], 2, dim=-1)
-    b = b.reshape(bsz, g, n).float()
-    c = c.reshape(bsz, g, n).float()
-    rep = nh // g
+    b = _heads_bc(b.reshape(bsz, g, n), cfg, sh, nh).float()
+    c = _heads_bc(c.reshape(bsz, g, n), cfg, sh, nh).float()
+    rep = nh // b.shape[1]
     br = b.repeat_interleave(rep, dim=1)                    # (B,nh,N)
     cr = c.repeat_interleave(rep, dim=1)
 
@@ -251,4 +298,4 @@ def ssm_decode_step(params: dict, xin: torch.Tensor, conv_x: torch.Tensor,
     y = (torch.einsum("bhn,bhpn->bhp", cr, h_new)
          + x * params["D"][None, :, None])
     y = y.reshape(bsz, 1, di).to(xin.dtype)
-    return _gate_out(params, y, z, cfg), new_conv_x, new_conv_bc, h_new
+    return _gate_out(params, y, z, cfg, sh), new_conv_x, new_conv_bc, h_new

@@ -16,14 +16,20 @@ port's own: one entry per tensor dim, each ``None``, an axis name or a
 tuple of axis names. :func:`to_placements` turns specs into DTensor
 placements on a ``DeviceMesh`` whose dims carry the axis names.
 
-The reference's ``make_sharder`` (a ``with_sharding_constraint``
-callback threaded through the models) has no counterpart: the port
-computes each step on gathered tensors (``launch.steps``), so there is
-no sharded activation for a constraint to act on.
+The reference's ``to_named`` is :func:`to_placements`. Its
+``make_sharder`` is :func:`make_sharder`: the callback the models take
+as ``sharder``, which carries the mesh, the data axes and the
+tensor-parallel group into them. The models compute each rank's own
+shard of every layer with it (Megatron's column- and row-parallel
+products over "model", FSDP shards gathered one layer at a time), and
+each named activation it is called on is checked to be its spec's local
+block.
 """
 
 from __future__ import annotations
 
+import collections
+import weakref
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -31,6 +37,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor import distribute_tensor
 
 from repro_torch import tree as tree_lib
+from repro_torch.launch import mesh as mesh_lib
 
 FSDP = "data"
 TP = "model"
@@ -341,3 +348,256 @@ def _contiguous_stride(shape) -> Tuple[int, ...]:
         stride.append(acc)
         acc *= d
     return tuple(reversed(stride))
+
+
+# ---------------------------------------------------------------------------
+# The activation sharder: the mesh, data axes and TP group in the models
+# ---------------------------------------------------------------------------
+
+#: The global size each dim of a named activation has, by role: "rows"
+#: (the global batch), "d_model" and "vocab" (from the parameters),
+#: "experts" (routed, padded) and "capacity" (LW+'s, given by the call).
+ROLES = {"hidden": ("rows", None, "d_model"),
+         "logits": ("rows", None, "vocab"),
+         "expert_in": ("experts", "capacity", "d_model")}
+
+
+def _block_size(size: int, mesh, axes, coord: Dict[str, int]) -> int:
+    """This rank's block of a dimension of `size` cut over `axes`, major
+    first, as DTensor cuts (``torch.chunk``)."""
+    for a in _axes(axes):
+        n = axis_sizes(mesh)[a]
+        chunk = -(-size // n)
+        size = max(0, min(chunk, size - coord[a] * chunk))
+    return size
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+class _LiveLayer:
+    """One gathered layer: alive while any of its gathered tensors is."""
+
+    def __init__(self, owner: "Sharder", n: int):
+        self.owner, self.n = owner, n
+        owner._live += 1
+        owner.max_live_layers = max(owner.max_live_layers, owner._live)
+
+    def release(self) -> None:
+        self.n -= 1
+        if self.n == 0:
+            self.owner._live -= 1
+
+
+class Sharder:
+    """The callback :func:`make_sharder` returns (the models' ``sharder``).
+
+    ``sharder(name, x)`` returns `x`, after checking that a named
+    activation's local shape is its spec's local block (raises
+    ValueError otherwise; ``checked`` counts the calls by name). Besides,
+    it carries what the models need to compute a rank's own shard:
+
+    * ``tp``, ``tp_rank``: the size of the tensor-parallel axis ("model",
+      under the ``tp`` and ``swep`` layouts; none under ``fsdp``) and this
+      rank's index on it; :meth:`copy`, :meth:`reduce`, :meth:`psum` and
+      :meth:`amax` over it (``launch.mesh``'s collectives);
+    * :meth:`gather` and :meth:`layer`: a parameter's (a layer's) local
+      shards whole over every axis but the tensor-parallel one, by the
+      placements :meth:`bind` read from the state's DTensors; the
+      gradient goes back reduce-scattered. ``max_live_layers`` counts the
+      most layers whose gathered weights were alive at once.
+
+    The default sharder (no mesh) does none of it: every method returns
+    its input, and the models compute the plain operations."""
+
+    def __init__(self, mesh=None, dp=None, layout: str = "tp",
+                 specs: Optional[Dict[str, PartitionSpec]] = None):
+        self.mesh, self.dp, self.layout = mesh, dp, layout
+        self.specs = specs or {}
+        names = tuple(mesh.mesh_dim_names) if mesh is not None else ()
+        self.tp_axis = TP if layout != "fsdp" and TP in names else None
+        self.tp = axis_sizes(mesh)[TP] if self.tp_axis else 1
+        self.tp_rank = mesh.get_local_rank(TP) if self.tp > 1 else 0
+        #: The axes a rank's loss is a share over: every axis but the
+        #: tensor-parallel one, whose ranks hold one loss between them.
+        self.sum_axes = tuple(a for a in names if a != self.tp_axis)
+        self.sizes: Dict[str, int] = {}
+        self.params: Dict[Tuple[str, ...], Tuple[tuple, tuple]] = {}
+        self.checked: collections.Counter = collections.Counter()
+        self.max_live_layers = 0
+        self._live = 0
+
+    # -- the reference's callback -------------------------------------
+
+    def __call__(self, name: str, x: torch.Tensor, **sizes) -> torch.Tensor:
+        spec = self.specs.get(name)
+        if self.mesh is None or spec is None:
+            return x
+        coord = dict(zip(self.mesh.mesh_dim_names,
+                         self.mesh.get_coordinate()))
+        for i, (role, entry) in enumerate(zip(ROLES[name], spec)):
+            size = sizes.get(role, self.sizes.get(role)) if role else None
+            if size is None:
+                continue
+            want = _block_size(size, self.mesh, entry, coord)
+            if x.shape[i] != want:
+                raise ValueError(
+                    f"sharder: {name} {tuple(x.shape)} on rank "
+                    f"{self.mesh.get_rank()}: dim {i} ({role}, {size} "
+                    f"over {entry}) should be {want} here (spec {spec})")
+        self.checked[name] += 1
+        return x
+
+    def bind(self, params: Dict[str, Any], rows: Optional[int] = None
+             ) -> "Sharder":
+        """This sharder for a step on `params` (a tree of DTensors) and a
+        global batch of `rows`: each leaf's placements and global shape,
+        and the global sizes of the named activations' dims."""
+        out = Sharder(self.mesh, self.dp, self.layout, self.specs)
+        for path, p in tree_lib.flatten(params):
+            out.params[path] = (tuple(p.placements), tuple(p.shape))
+            if path == ("embed",):
+                out.sizes.update(vocab=p.shape[0], d_model=p.shape[1])
+            elif path[-1] == "w1" and "moe" in path and p.dim() == 4:
+                out.sizes["experts"] = p.shape[1]
+        if rows is not None:
+            out.sizes["rows"] = rows
+        return out
+
+    # -- tensor parallelism over "model" ------------------------------
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's "copy" (``launch.mesh.copy``) over the TP axis."""
+        if self.tp == 1:
+            return x
+        return mesh_lib.copy(x, self.mesh, self.tp_axis)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's "reduce" (``launch.mesh.reduce``) over the TP axis."""
+        if self.tp == 1:
+            return x
+        return mesh_lib.reduce(x, self.mesh, self.tp_axis)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the TP axis; its gradient the ranks' sum."""
+        if self.tp == 1:
+            return x
+        return mesh_lib.psum(x, self.mesh, self.tp_axis)
+
+    def amax(self, x: torch.Tensor) -> torch.Tensor:
+        """The maximum over the TP axis (no gradient)."""
+        if self.tp == 1:
+            return x
+        return mesh_lib.all_reduce(x.detach().clone(), self.mesh,
+                                   self.tp_axis,
+                                   torch.distributed.ReduceOp.MAX)
+
+    def tp_first(self, size: int) -> int:
+        """The first index of this rank's block of a dimension of `size`
+        cut over the TP axis (as DTensor cuts)."""
+        return self.tp_rank * -(-size // self.tp)
+
+    def gather_tp(self, t: torch.Tensor, dim: int, size: int
+                  ) -> torch.Tensor:
+        """`t`, this rank's block along `dim` over the TP axis, whole (an
+        all-gather; the gradient reduce-scattered back)."""
+        if self.tp == 1:
+            return t
+        return mesh_lib.gather(t, self.mesh, self.tp_axis, dim, size)
+
+    def scale_grad(self, x: torch.Tensor, scale: float) -> torch.Tensor:
+        """`x` forward, its gradient times `scale` backward."""
+        if scale == 1.0:
+            return x
+        return _ScaleGrad.apply(x, scale)
+
+    # -- LW+'s capacity buffer over FSDP -------------------------------
+
+    def capacity_split(self) -> bool:
+        """Whether ``expert_in``'s capacity dim is cut over "data": a
+        tensor-parallel layout with more than one "data" rank."""
+        return (self.mesh is not None and self.layout != "fsdp"
+                and axis_sizes(self.mesh).get(FSDP, 1) > 1)
+
+    def scatter_capacity(self, buf: torch.Tensor) -> torch.Tensor:
+        """(E_loc, C, D) buffers, each holding this rank's assignments at
+        their global slots -> this rank's block of C of their sum: a
+        reduce-scatter over "data" and a sum over the other data axes;
+        where the rows are the same on every "data" rank (not data
+        parallel), the block of this rank's own buffer."""
+        dp = _axes(self.dp)
+        if FSDP not in dp:
+            return local_block(buf, self.mesh, FSDP, 1)
+        buf = mesh_lib.scatter(buf, self.mesh, FSDP, 1)
+        return mesh_lib.psum(buf, self.mesh, [a for a in dp if a != FSDP])
+
+    def gather_capacity(self, out: torch.Tensor, cap: int) -> torch.Tensor:
+        """The transpose of :meth:`scatter_capacity`'s cut: every block of
+        C, all-gathered over "data"."""
+        return mesh_lib.gather(out, self.mesh, FSDP, 1, cap)
+
+    # -- FSDP: parameters gathered where they are used ----------------
+
+    def _gathered(self, t: torch.Tensor, path, stacked: bool) -> torch.Tensor:
+        info = self.params.get(path)
+        if info is None:
+            return t
+        placements, shape = info
+        dims: Dict[int, list] = {}
+        for name, p in zip(self.mesh.mesh_dim_names, placements):
+            if isinstance(p, Shard) and name != self.tp_axis:
+                dims.setdefault(p.dim, []).append(name)
+        for dim, axes in dims.items():
+            t = mesh_lib.gather(t, self.mesh, axes, dim - stacked,
+                                shape[dim])
+        return t
+
+    def gather(self, t: torch.Tensor, path: Tuple[str, ...]
+               ) -> torch.Tensor:
+        """The parameter at `path` (its local shard `t`) gathered over its
+        FSDP axes: whole but for the TP axis."""
+        if self.mesh is None:
+            return t
+        return self._gathered(t, path, False)
+
+    def layer(self, lp: Dict[str, Any]) -> Dict[str, Any]:
+        """One layer's parameters (views of the stacked local shards)
+        gathered over their FSDP axes."""
+        if self.mesh is None:
+            return lp
+        flat = tree_lib.flatten(lp)
+        out = [(path, self._gathered(t, ("layers",) + path, True))
+               for path, t in flat]
+        made = [g for (_, t), (_, g) in zip(flat, out) if g is not t]
+        if made:
+            live = _LiveLayer(self, len(made))
+            for g in made:
+                weakref.finalize(g, live.release)
+        return tree_lib.unflatten(out)
+
+
+#: The default ``sharder`` of the models: no mesh, no checks.
+NO_SHARDER = Sharder()
+
+
+def make_sharder(mesh, dp, layout: str = "tp") -> Sharder:
+    """Activation-sharding callback threaded through the models, with the
+    reference's specs: ``hidden`` P(dp, None, None); ``logits`` P(dp,
+    None, TP), or P(dp, None, None) under ``fsdp``; ``expert_in`` P(TP,
+    FSDP, None) (experts over "model", LW+'s capacity over "data"), or
+    unsharded under ``fsdp``. See :class:`Sharder`."""
+    if layout == "fsdp":
+        specs = {"hidden": P(dp, None, None), "logits": P(dp, None, None),
+                 "expert_in": P(None, None, None)}
+    else:
+        specs = {"hidden": P(dp, None, None), "logits": P(dp, None, TP),
+                 "expert_in": P(TP, FSDP, None)}
+    return Sharder(mesh, dp, layout, specs)

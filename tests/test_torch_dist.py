@@ -26,9 +26,21 @@ SW+, held to the reference's (2, 2) sharded step (loss, ce and aux rtol
 2e-5; grads rtol 1e-3, atol 1e-4; SW+ has no backward, in either
 package, so its loss alone) and to its sharded prefill and decode (rtol
 1e-5, atol 1e-5): the layer routes the global batch, as GSPMD does.
+The ``ssm`` and ``hybrid`` families (``FAMILY_CASES``: the
+``mamba2-780m`` and ``hymba-1.5b`` smoke configs, float32, tp_divisor
+2) under ``tp`` and ``fsdp``, held the same way.
 
-The ``gpu`` tests run ``chip_smoke.py``'s distribution phase (a)–(e) on
-a card, a world of one.
+Every case computes its rank's shards (tensor parallelism over "model",
+FSDP shards gathered a layer at a time): under ``tp`` the step and its
+arms issue no all-gather over "model" at all (``launch.mesh``'s counts),
+the sharder finds each named activation its spec's local block, and
+under ``fsdp`` with remat at most two layers' gathered weights are alive
+at once (one, measured; all of them without remat, where autograd saves
+them).
+
+The ``gpu`` tests run ``chip_smoke.py``'s distribution phase (a)–(f) on
+a card, a world of one ((f): rank 0's local step of the dry run's
+tinyllama cell in a child process, on a fake group of 512 ranks).
 """
 
 import dataclasses
@@ -98,8 +110,23 @@ ROUTE_CASES = {f"{layout}-{name}": (layout, dict(
     cfg, remat="full" if (layout, name) == ("fsdp", "lw_plus-cf0.5")
     else "none")) for layout in ("tp", "fsdp")
     for name, cfg in MOE_ROUTE_CFGS.items()}
+
+
+def _smoke_cfg(arch):
+    cfg = tregistry.get_config(arch, smoke=True)
+    return dict(dataclasses.asdict(cfg), dtype="float32", tp_divisor=2)
+
+
+# The ssm and hybrid families (their tp case recomputes its layers with
+# remat "dots", under which each layer's FSDP gathers run again).
+FAMILY_CFGS = {"ssm": _smoke_cfg("mamba2-780m"),
+               "hybrid": _smoke_cfg("hymba-1.5b")}
+FAMILY_CASES = {f"{layout}-{fam}": (layout, dict(
+    cfg, remat="dots" if layout == "tp" else "none"))
+    for layout in ("tp", "fsdp") for fam, cfg in FAMILY_CFGS.items()}
+ARM_CASES = dict(ROUTE_CASES, **FAMILY_CASES)
 STEP_CASES = dict({layout: (layout, cfg) for layout, cfg in
-                   LAYOUT_CFGS.items()}, **ROUTE_CASES)
+                   LAYOUT_CFGS.items()}, **ARM_CASES)
 TRAIN_ARGS = ["--arch", "tinyllama-1.1b", "--smoke", "--steps", "6",
               "--batch", "8", "--seq-len", "32", "--ckpt-every", "3",
               "--log-every", "1", "--model-parallel", "2"]
@@ -284,7 +311,7 @@ def _reference_step(inputs, case):
         out["grads"] = {"/".join(str(getattr(k, "key", k)) for k in path):
                         np.asarray(g) for path, g in
                         jax.tree_util.tree_flatten_with_path(grads)[0]}
-    if case in ROUTE_CASES:
+    if case in ARM_CASES:
         out["arms"] = _reference_arms(inputs, key, cfg, layout, params)
     return out
 
@@ -311,9 +338,14 @@ def _reference_arms(inputs, key, cfg, layout, params):
                 params, jnp.asarray(inputs[key + "/next"]), cache)
     finally:
         rgran.set_mesh(None)
-    return {"prefill_logits": np.asarray(logits),
-            "decode_logits": np.asarray(dlogits),
-            "decode_k": np.asarray(cache["kv"]["k"])}
+    out = {"prefill_logits": np.asarray(logits),
+           "decode_logits": np.asarray(dlogits)}
+    if "kv" in cache:
+        out["decode_k"] = np.asarray(cache["kv"]["k"])
+    if "ssm" in cache:
+        out.update(decode_h=np.asarray(cache["ssm"]["h"]),
+                   decode_conv_x=np.asarray(cache["ssm"]["conv_x"]))
+    return out
 
 
 def _plain_arms(inputs, layout):
@@ -491,6 +523,95 @@ def test_moe_routing_arms_match_reference(dist_run, case, name):
                                rtol=1e-5, atol=1e-5)
 
 
+# ------------------------------------- the ssm and hybrid families
+
+
+def _arm_names(case):
+    fam = FAMILY_CASES[case][1]["family"]
+    return (["prefill_logits", "decode_logits"]
+            + (["decode_k"] if fam == "hybrid" else [])
+            + ["decode_h", "decode_conv_x"])
+
+
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_family_step_loss_matches_reference(dist_run, case):
+    got, ref = dist_run["got"], dist_run["ref"]["step"][case]
+    key = "step_" + case
+    for name in ("loss", "ce", "step_loss"):
+        np.testing.assert_allclose(got[f"{key}/{name}"],
+                                   ref["ce" if name == "ce" else "loss"],
+                                   rtol=2e-5, err_msg=name)
+    assert float(got[key + "/tokens"]) == ref["tokens"]
+    np.testing.assert_allclose(got[key + "/grad_norm"], ref["grad_norm"],
+                               rtol=1e-4)
+    assert bool(got[key + "/shards_ok"])
+
+
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_family_step_grads_match_reference(dist_run, case):
+    got, ref = dist_run["got"], dist_run["ref"]["step"][case]["grads"]
+    prefix = f"step_{case}/grads/"
+    keys = {k[len(prefix):] for k in got if k.startswith(prefix)}
+    assert keys == set(ref)
+    for k in sorted(keys):
+        np.testing.assert_allclose(got[prefix + k], ref[k], rtol=1e-3,
+                                   atol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_family_arms_match_reference(dist_run, case):
+    got, ref = dist_run["got"], dist_run["ref"]["step"][case]["arms"]
+    for name in _arm_names(case):
+        np.testing.assert_allclose(got[f"step_{case}/{name}"], ref[name],
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+# ---------------------------- the rank's shards: collectives, sharder
+
+
+def _counts(dist_run, case, which="counts"):
+    return json.loads(str(dist_run["got"][f"step_{case}/{which}"]))
+
+
+@pytest.mark.parametrize("case", [c for c, (layout, _) in STEP_CASES.items()
+                                  if layout in ("tp", "swep")])
+def test_tp_never_all_gathers_over_model(dist_run, case):
+    """Under tp (and swep) no TP-sharded parameter, and no tensor at all,
+    is all-gathered over "model", in the step or its arms; the layers'
+    Megatron sums over "model" and, but for swep's experts, FSDP's
+    gathers over "data" run."""
+    for which in ("counts", "arm_counts"):
+        if f"step_{case}/{which}" not in dist_run["got"]:
+            continue                         # swep has no arms
+        counts = _counts(dist_run, case, which)
+        assert counts.get("model/all_gather", 0) == 0, (which, counts)
+        assert counts.get("model/all_reduce", 0) > 0, (which, counts)
+        assert counts.get("data/all_gather", 0) > 0, (which, counts)
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_sharder_checks_every_named_activation(dist_run, case):
+    """The sharder's names were each checked (a local block of its spec,
+    or the run raises): hidden and logits in every case, expert_in where
+    LW+ builds its capacity buffer."""
+    layout, cfg = STEP_CASES[case]
+    want = {"hidden", "logits"}
+    if cfg["family"] == "moe" and layout != "swep" and \
+            cfg.get("moe_dispatch", "lw_plus") == "lw_plus":
+        want.add("expert_in")
+    assert set(json.loads(str(dist_run["got"][f"step_{case}/checked"]))) \
+        == want
+
+
+def test_fsdp_gathers_at_most_two_layers_at_once(dist_run):
+    """Under fsdp with remat, the gathered weights of at most two layers
+    (measured: one) are alive at once; without remat autograd keeps every
+    layer's for the backward, which the count sees."""
+    got = dist_run["got"]
+    assert int(got["live_full"]) <= 2 and int(got["live_dots"]) <= 2
+    assert int(got["live_none"]) == dist_smoke.LIVE_LAYERS
+
+
 def test_elastic_recover_onto_half_the_ranks(dist_run):
     assert bool(dist_run["got"]["elastic/ok"])
 
@@ -590,3 +711,9 @@ def test_elastic_recover_on_card(card):
 @pytest.mark.gpu
 def test_seq_sharded_decode_on_card(card):
     assert dist_smoke.decode_check(card)["max_abs_err"] < 1e-3
+
+
+@pytest.mark.gpu
+def test_rank0_local_step_of_the_dry_run_cell_on_card(card, tmp_path):
+    out = dist_smoke.rank0_check(card, str(tmp_path))
+    assert out["rows"] == 16 and out["peak_bytes"] < dist_smoke.CARD_BYTES

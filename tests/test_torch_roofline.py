@@ -18,7 +18,9 @@
 * ``launch.dryrun``: ``tinyllama-1.1b|train_4k|pod16x16`` in a child
   process (~10 s): status ``ok``, the reference's row keys, its
   ``model_flops_total`` and ``memory_model_bytes`` from the reference's
-  formulas, and ``roofline_table`` on the result.
+  formulas, rank 0's exact 1/16 share of the products under tensor
+  parallelism with its temporaries under 80 GB, and ``roofline_table``
+  on the result.
 """
 
 import ast
@@ -339,21 +341,25 @@ def test_dryrun_cell_matches_reference_keys_and_formulas(dry_cell):
 
 
 def test_dryrun_cell_counts(dry_cell):
-    """Rank 0 of 16 data ranks computes its 16 rows of 4096 with every
-    parameter gathered: about the projections of 65,536 tokens, so the
-    useful ratio is about 1/16; the gathers and the gradients'
-    reduce-scatter are its collectives."""
+    """Rank 0 computes its 16 rows of 4096 with its own 1/16 of every
+    layer over "model" (tensor parallelism: heads, d_ff and the vocab
+    split 16 ways), so it does exactly 1/16 of the products of 65,536
+    tokens, and the useful ratio is above 0.6; FSDP shards are gathered
+    a layer at a time, so its live temporaries stay under one card's 80
+    GB. FSDP's gathers and reduce-scatters and Megatron's all-reduces are
+    its collectives."""
     _, data = dry_cell
     row = data["tinyllama-1.1b|train_4k|pod16x16"]
     r = row["roofline"]
     cfg = tget("tinyllama-1.1b")
     work = train_smoke.step_flops(cfg, 16, 4096)
-    assert r["flops_per_device"] == work["projections"] + \
-        work["attention_computed"]
-    assert 1 / 32 < r["useful_flops_ratio"] < 1 / 16
+    assert r["flops_per_device"] == (work["projections"]
+                                     + work["attention_computed"]) / 16
+    assert r["useful_flops_ratio"] > 0.6
     assert set(r["collective_breakdown"]) == {"all-gather", "all-reduce",
                                               "reduce-scatter"}
-    assert row["memory"]["temp_bytes"] > row["memory"]["argument_bytes"] > 0
+    assert 80e9 > row["memory"]["temp_bytes"] > \
+        row["memory"]["argument_bytes"] > 0
     assert row["hlo_dot_count"] > 0
 
 

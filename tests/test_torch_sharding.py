@@ -255,6 +255,56 @@ def test_build_step_on_one_rank_is_the_plain_step(mesh1, arch, accum):
         assert torch.equal(a, b.to_local())
 
 
+@pytest.mark.parametrize("layout", ["tp", "fsdp", "swep"])
+def test_make_sharder_specs_are_the_reference_table(layout):
+    """make_sharder's specs are the reference's (read from its closure)."""
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                             ("data", "model"))
+    ref = rsharding.make_sharder(mesh, ("data",), layout)
+    cells = dict(zip(ref.__code__.co_freevars,
+                     (c.cell_contents for c in ref.__closure__)))
+    got = tsharding.make_sharder(None, ("data",), layout).specs
+    assert {k: tuple(v) for k, v in got.items()} == \
+        {k: tuple(v) for k, v in cells["specs"].items()}
+
+
+def test_sharder_checks_local_blocks_on_one_rank(mesh1):
+    """A named activation passes back unchanged when its shape is its
+    spec's local block (the bound rows, vocab, d_model and experts, the
+    capacity given), and raises otherwise; the default does no check."""
+    cfg = tregistry.get_config("qwen2-moe-a2.7b", smoke=True)
+    params = tsharding.distribute_tree(
+        convert.params_from_numpy(convert.numpy_params(cfg, 0), cfg, "cpu"),
+        mesh1, tsharding.to_placements(mesh1, tsharding.param_specs(
+            convert.param_struct(cfg))))
+    sh = tsharding.make_sharder(mesh1, ("data",), "tp").bind(params, rows=4)
+    v, d, e = cfg.vocab_padded, cfg.d_model, cfg.moe_experts_eff
+    for name, shape, sizes in (("hidden", (4, 3, d), {}),
+                               ("logits", (4, 1, v), {}),
+                               ("expert_in", (e, 8, d), {"capacity": 8})):
+        x = torch.zeros(shape)
+        assert sh(name, x, **sizes) is x
+        bad = torch.zeros((shape[0] + 1,) + shape[1:])
+        with pytest.raises(ValueError, match=name):
+            sh(name, bad, **sizes)
+    assert sh.checked == {"hidden": 1, "logits": 1, "expert_in": 1}
+    assert tsharding.NO_SHARDER("logits", bad) is bad
+
+
+def test_collectives_on_one_rank_return_their_input(mesh1):
+    """Over axes of one rank Megatron's operators, FSDP's gather and
+    scatter and psum return their input itself and issue nothing."""
+    tmesh.reset_counts()
+    x = torch.ones(4, 6, requires_grad=True)
+    for fn in (lambda t: tmesh.copy(t, mesh1, "model"),
+               lambda t: tmesh.reduce(t, mesh1, "model"),
+               lambda t: tmesh.psum(t, mesh1, ("data", "model")),
+               lambda t: tmesh.gather(t, mesh1, ("data", "model"), 1, 6),
+               lambda t: tmesh.scatter(t, mesh1, "data", 0)):
+        assert fn(x) is x
+    assert tmesh.collective_counts() == {}
+
+
 def test_build_step_structs_no_allocation(mesh1):
     cfg = tregistry.get_config("tinyllama-1.1b", smoke=True)
     for kind in ("train", "prefill", "decode"):
