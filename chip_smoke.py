@@ -10,8 +10,9 @@
    ``gather_rows_kernel``, K4 ``gmm_kernel``, K5
    ``flash_attention_kernel``, K6 ``ssd_scan_kernel``), and prints
    each one's ``ptxas -v`` report (registers, shared memory, spills);
-   beside them, ``cc`` builds the host aggregation core
-   (``csrc/warpsim_aggregate.c``).
+   beside them, ``cc`` builds the host C cores: the aggregation core
+   (``csrc/warpsim_aggregate.c``) and the native engine's scheduling loop
+   (``csrc/warpsim_loop.c``).
 3. Holds K1's code alone (``ws_prep_kernel``, the check entry) against
    ``prep_ref`` on the same card tensors, and K2 (``ws_family_kernel``,
    which preps the blocks it stages) against ``simulate_family_ref`` run
@@ -210,7 +211,8 @@
    CPU's unless top-k choices flipped at near ties (counted and
    printed); and (b) ``sweep_bench.run(quick=True)`` on the card (one
    ``ws_family_kernel`` launch a trace family cold, none warm, records
-   bit for bit with ``engine="torch"``). Then, all at once, child
+   bit for bit with ``engine="torch"`` and the host baselines', the
+   reference's quick floors on cold). Then, all at once, child
    processes (d) ``python -m repro_torch.benchmarks.run --only
    moe,roofline`` (exit 0, its CSV rows) and (e) the four examples on the
    card (``quickstart``, ``serve_batched``, ``train_resume`` and
@@ -239,6 +241,29 @@
    through another daemon 0 and 0; walls, each daemon's share, peer
    hits and replicas. (f) Its ``/metrics`` on two daemons:
    ``warpsim_cells_simulated_total`` 270 fleet-wide, warm 0.
+
+21. The host engines and the sweep's modes on the card's host
+   (``engines_phase``). (a) In this process, which holds a CUDA context:
+   the 270-cell paper study (seeds 0-2) through ``Study(engine=e)``:
+   ``native`` serially and in a process pool of 4 (``forkserver``
+   workers), and ``fast``, ``fast_nested`` and ``event`` in a pool of
+   every CPU (their serial walls are ``sweep_bench``'s business, and
+   the CPU tests hold them against the reference): every record bit for
+   bit against the grid file and step 5's card records, 0
+   ``ws_family_kernel`` launches each (the count set to 0 just before,
+   read just after), each wall beside the card's. (b)
+   ``sweep_bench.run(quick=False, device="cuda")``: the reference's
+   ``serial_event``, ``cold_pr1`` and ``cold_pr2`` baselines, ``cold``
+   (the card), ``warm``, ``trace_build`` and ``cold_native`` (the host C
+   engine's cold study); the reference's floors asserted on ``cold``; its
+   rows and the ratios of ``cold`` to each baseline and to
+   ``cold_native``, and which of the card's cold study and the host C
+   engine's is faster. (c) The host's CPUs, the pool's start method and
+   its start cost, traced: the server's start, the workers' launch in
+   this process, each worker's age when its first task ran, the results'
+   return and the shutdown; then the same pool started from a child
+   process whose main program is a ``-c`` string (multiprocessing runs a
+   main script again in every worker, a ``-c`` string it does not).
 
 Prints one JSON object of kernel records on the line before the last and
 ``{"ok": true, "device": ...}`` as the last line. Exits non-zero, printing
@@ -1921,7 +1946,8 @@ def harness_phase(torch, dev, card):
         for name, us, derived in hs.sweep_check(dev):
             print(f"  {name},{us:.1f},{derived:.6g}")
         print(f"harness (b): one ws_family_kernel launch a trace family "
-              f"cold, none warm, records == engine='torch' [{card}]")
+              f"cold, none warm, records == engine='torch' and the host "
+              f"baselines', quick floors held [{card}]")
 
         dry = hs.finish(children.pop("dryrun"))
         hs.check_finished("dry run", dry)
@@ -2101,6 +2127,204 @@ def fleet_phase(res, ref, service, card):
     print(f"fleet phase: {time.perf_counter() - t_phase:.3f} s [{card}]")
 
 
+def pool_trace_probe(_arg=None):
+    """A pool worker's pid, whether it holds torch, its age in s when the
+    task runs (from /proc: the kernel's start time of the process, in
+    clock ticks), whether multiprocessing ran the main script in it, and
+    the seconds its import of the sweep module took (0 when the pool's
+    server had preloaded it)."""
+    from multiprocessing import spawn
+    with open("/proc/self/stat", encoding="utf-8") as fh:
+        ticks = int(fh.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime", encoding="utf-8") as fh:
+        uptime = float(fh.read().split()[0])
+    age = uptime - ticks / os.sysconf("SC_CLK_TCK")
+    t0 = time.perf_counter()
+    import repro_torch.core.warpsim.sweep  # noqa: F401
+    return (os.getpid(), "torch" in sys.modules, age,
+            sys.modules["__main__"].__name__ == "__mp_main__"
+            and bool(spawn.old_main_modules), time.perf_counter() - t0)
+
+
+def pool_start_split(sweep_mod, workers):
+    """One start of the sweep's pool of `workers`, traced, in s: the
+    server's ``ensure_running`` (its start when none runs), the workers'
+    launch (the first submit starts them all), the probes' return, the
+    shutdown; and the probes (:func:`pool_trace_probe`)."""
+    import concurrent.futures
+    from multiprocessing import forkserver
+    ctx = sweep_mod.pool_context()
+    t0 = time.perf_counter()
+    forkserver.ensure_running()
+    t1 = time.perf_counter()
+    ex = concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx)
+    futs = [ex.submit(pool_trace_probe)]
+    t2 = time.perf_counter()
+    futs += [ex.submit(pool_trace_probe) for _ in range(workers - 1)]
+    probes = [f.result() for f in futs]
+    t3 = time.perf_counter()
+    ex.shutdown(wait=True)
+    t4 = time.perf_counter()
+    return t1 - t0, t2 - t1, t3 - t2, t4 - t3, probes
+
+
+# A pool of 4 started three times from a ``-c`` program, whose workers
+# multiprocessing does not run a main script in: the seconds of each.
+_POOL_CHILD = """
+import concurrent.futures, sys, time
+from repro_torch.core.warpsim import sweep
+secs = []
+for _ in range(3):
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            4, mp_context=sweep.pool_context()) as ex:
+        list(ex.map(sweep.pool_probe, range(4)))
+    secs.append(time.perf_counter() - t0)
+print(" ".join(f"{x:.6f}" for x in secs))
+"""
+
+
+def host_load() -> str:
+    """The host's load average, this process's threads, its live child
+    processes (from /proc) and the CPUs it may run on, as one phrase."""
+    import threading
+    kids = 0
+    for pid in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{pid}/stat", encoding="utf-8") as fh:
+                ppid = int(fh.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        kids += ppid == os.getpid()
+    load = ", ".join(f"{x:.2f}" for x in os.getloadavg())
+    return (f"load average {load}; {threading.active_count()} threads, "
+            f"{kids} child processes; affinity "
+            f"{len(os.sched_getaffinity(0))} of {os.cpu_count()} CPUs")
+
+
+def engines_phase(res, ref, wall, card):
+    """Step 21: the host engines and the sweep's modes on the card's host.
+    (a) The 270-cell study through the native engine serially and in a
+    pool of 4, and through the Python engines in a pool of every CPU, in
+    this process (which holds a CUDA context): records bit for bit against the grid file and the step-5
+    card records `res`, 0 ``ws_family_kernel`` launches each (the count
+    set to 0 just before, read just after), walls beside the card's
+    `wall` (step 5's median unprofiled study). (b)
+    ``sweep_bench.run(quick=False, device="cuda")``: its rows, the ratios
+    of ``cold`` to each baseline and to ``cold_native``; the floors are
+    asserted there. (c) The host's CPUs, the pool's start
+    method and its start cost, traced, and from a ``-c`` program."""
+    from repro_torch.benchmarks import service_smoke, sweep_bench
+    from repro_torch.core.warpsim import _cuda, api
+    from repro_torch.core.warpsim import sweep as sweep_mod
+    from repro_torch.core.warpsim.timing import HOST_ENGINES
+
+    t_phase = time.perf_counter()
+    print(f"engines: at the start, {host_load()}")
+    # The first pool of this process also starts the pool's server.
+    splits = [pool_start_split(sweep_mod, 4) for _ in range(2)]
+
+    stamp("engines (a): the 270-cell study through each host engine")
+    card_recs = [dataclasses.asdict(r.result) for r in res.records]
+    study = api.Study(seeds=(0, 1, 2))
+    out = {}
+    ncpu = os.cpu_count() or 1
+    runs = [("native", api.InProcessBackend(parallel=False)),
+            ("native, pool of 4",
+             api.InProcessBackend(parallel=True, max_workers=4))]
+    runs += [(f"{e}, pool of {ncpu}",
+              api.InProcessBackend(parallel=True, max_workers=ncpu))
+             for e in HOST_ENGINES if e != "native"]
+    for label, backend in runs:
+        engine = label.split(",")[0]
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = api.Session(device="cuda", backend=backend).run(
+            dataclasses.replace(study, engine=engine))
+        secs = time.perf_counter() - t0
+        n = _cuda.launch_count("ws_family_kernel")
+        check_records(got.records, ref, f"{label} study")
+        if [dataclasses.asdict(r.result) for r in got.records] != card_recs:
+            fail(f"{label} study: records differ from the card's (step 5)")
+        if n or got.stats["family_launches"] or got.stats["simulated"] != 270:
+            fail(f"{label} study: {n} ws_family_kernel launches, stats "
+                 f"{got.stats}")
+        out[label] = secs
+        print(f"  {label:18s} 270 records == reference grid and the card's "
+              f"(bit for bit), 0 ws_family_kernel launches, wall "
+              f"{secs:.6f} s ({secs / wall:.3f}x the card's study, "
+              f"{wall:.6f} s) "
+              f"[{card}]")
+
+    stamp("engines (b): sweep_bench at the full grid on the card")
+    _cuda.reset_launch_counts()
+    try:
+        rows = sweep_bench.run(quick=False, device="cuda")
+    except AssertionError as e:
+        fail(f"sweep_bench (full grid): {e}")
+    bench_launches = _cuda.launch_count("ws_family_kernel")
+    by = {name: (us, d) for name, us, d in rows}
+    for name, us, derived in rows:
+        print(f"  {name},{us:.1f},{derived:.6g}")
+    floors = sweep_bench.effective_floors(False)
+    cold = by["sweep/cold"][0]
+    print(f"  cold {cold / 1e6:.6f} s; cold_native / cold "
+          f"{by['sweep/cold_native'][0] / cold:.6f}; cold_pr1 / cold "
+          f"{by['sweep/cold_pr1'][0] / cold:.6f} (floor "
+          f"{floors['cold_vs_pr1']}); cold_pr2 / cold "
+          f"{by['sweep/cold_pr2'][0] / cold:.6f} (floor "
+          f"{floors['cold_vs_pr2']}); serial_event / cold "
+          f"{by['sweep/serial_event'][0] / cold:.6f} (floor "
+          f"{floors['cold_vs_serial_event']}); floors held; "
+          f"{bench_launches} ws_family_kernel launches in the bench "
+          f"[{card}]")
+    faster = ("the card's cold study" if cold < by["sweep/cold_native"][0]
+              else "the host C engine (cold_native)")
+    print(f"  faster on this host: {faster}")
+
+    stamp("engines (c): the host and the pool")
+    splits.append(pool_start_split(sweep_mod, 4))
+    print(f"engines (c): {ncpu} CPUs; {host_load()}; pool start "
+          f"method {sweep_mod.POOL_START_METHOD}; in the bench, a pool of "
+          f"{int(by['sweep/pool_start'][1])} started, ran a task in each "
+          f"worker and shut down in "
+          f"{by['sweep/pool_start'][0] / 1e6:.6f} s (min of 3); this "
+          f"process's sys.path has {len(sys.path)} entries, the main "
+          f"script is {os.path.getsize(__file__)} bytes")
+    for label, (server, launch, back, stop, probes) in zip(
+            ("first (server's start)", "second", "after the bench"),
+            splits):
+        ages = sorted(age for _pid, _t, age, _main, _imp in probes)
+        print(f"  a pool of 4, {label}: server {server:.6f} s, workers' "
+              f"launch here {launch:.6f} s, their tasks' return "
+              f"{back:.6f} s, shutdown {stop:.6f} s; workers' age at "
+              f"their first task {ages[0]:.2f}-{ages[-1]:.2f} s; "
+              f"{len({pid for pid, *_ in probes})} of {len(probes)} "
+              f"workers ran a task; main script run again in "
+              f"{sum(p[3] for p in probes)}, torch held by "
+              f"{sum(p[1] for p in probes)}; the sweep's import in a "
+              f"worker {max(p[4] for p in probes):.6f} s at most")
+    secs, _ = sweep_bench.pool_start(4)
+    print(f"  a pool of 4 mapping sweep.pool_probe (sweep_bench's "
+          f"pool_start): {secs:.6f} s")
+    src = os.path.join(ROOT, "src")
+    try:
+        cwd = repr(os.getcwd())
+    except OSError as e:
+        cwd = f"unreadable ({e})"
+    print(f"  this process: {src} on sys.path: {src in sys.path}; working "
+          f"directory {cwd}; sys.path {sys.path}")
+    child = subprocess.run([sys.executable, "-c", _POOL_CHILD],
+                           env=service_smoke.child_env(), capture_output=True,
+                           text=True, timeout=300)
+    if child.returncode:
+        fail(f"pool start from a -c program: {child.stderr[-2000:]}")
+    print(f"  a pool of 4 from a -c program (no main script to run again), "
+          f"three starts: {child.stdout.strip()} s [{card}]")
+    print(f"engines phase: {time.perf_counter() - t_phase:.3f} s [{card}]")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2114,6 +2338,14 @@ def main() -> None:
     from repro_torch.core.warpsim.trace import BENCHMARKS
     from repro_torch.kernels import _lib as lm_lib
 
+    # The port on PYTHONPATH too, as a user runs it: the process pool's
+    # forkserver in CPython 3.12.3 preloads the sweep without the sys.path
+    # entry made above (3.12.12 applies it), and without the preload each
+    # worker imports the port itself (~1 s on an H100 host).
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH"))
+        if p)
+
     # float32 products in full float32 (the parity checks' tolerances
     # assume it; these are PyTorch's defaults for matmul, set explicitly).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2125,9 +2357,11 @@ def main() -> None:
           f"python {sys.version.split()[0]}")
 
     # ---- build: one compiler per source, all started together -----------
-    # (nvcc for the kernels; cc for the host aggregation core)
+    # (nvcc for the kernels; cc for the host C cores: the aggregation core
+    # and the native engine's scheduling loop)
     builds = {"warpsim_family": _cuda.build,
-              "warpsim_aggregate": _native.build}
+              "warpsim_aggregate": _native.build,
+              "warpsim_loop": _native.build_loop}
     for name in lm_lib.KERNELS:
         builds[name] = (lambda n=name: lm_lib.build(n))
 
@@ -2144,7 +2378,7 @@ def main() -> None:
     for name, (path, secs) in built.items():
         print(f"  {name}: {secs:.3f} s -> {os.path.relpath(path, ROOT)}")
     for name in builds:
-        if name == "warpsim_aggregate":
+        if name in ("warpsim_aggregate", "warpsim_loop"):
             continue
         for line in _nvcc.build_log(built[name][0]).splitlines():
             if "ptxas info" in line or "spill" in line:
@@ -2475,6 +2709,8 @@ def main() -> None:
     harness_phase(torch, dev, card)
     stamp("the service fleet on the card")
     fleet_phase(res, ref, service, card)
+    stamp("the host engines and the sweep's modes on the card's host")
+    engines_phase(res, ref, statistics.median(walls), card)
     stamp("done")
     del flash_cases, ssd_cases
     for name in ("flash_attention_kernel", "ssd_scan_kernel"):

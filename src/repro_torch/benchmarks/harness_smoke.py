@@ -12,8 +12,9 @@ on a failure:
   float32 tolerance, and the slot efficiencies and drop rate equal to
   the CPU's unless top-k choices flipped at near ties, which are counted;
 * :func:`sweep_check` (b): ``sweep_bench.run(quick=True)``, which asserts
-  one ``ws_family_kernel`` launch a family cold, none warm, and records
-  bit for bit with the grid through ``engine="torch"``;
+  one ``ws_family_kernel`` launch a family cold, none warm, records bit
+  for bit with the grid through ``engine="torch"`` and with its host
+  baselines', and (on the card) the reference's quick floors on cold;
 * :data:`DRYRUN` (c), :data:`RUN` (d), :func:`example_commands` (e): the
   command lines of the child processes (the dry run needs a process
   group of its own), started by :func:`start` and read by :func:`finish`.

@@ -9,8 +9,9 @@ CSV:
   PYTHONPATH=src python -m repro_torch.benchmarks.run --device cpu
 
 ``--only`` keeps the benches whose name holds one of its comma-separated
-substrings: ``sweep`` (``sweep_bench``: cold/warm grid and its launch
-contract), ``fig1``–``fig7`` (``figs.Figures`` over one
+substrings: ``sweep`` (``sweep_bench``: the cold study against the
+reference's host baselines, the warm grid, the launch contract),
+``fig1``–``fig7`` (``figs.Figures`` over one
 ``api.Session.from_env``: a sweep daemon when one is named, else in
 process over ``benchmarks/results/torch/sweep_cache``), ``kernels``
 (``kernel_bench``), ``moe`` (``moe_dispatch_bench``) and ``roofline``

@@ -39,6 +39,7 @@ import torch
 
 from repro_torch import _nvcc as nvcc_build
 from repro_torch.core.warpsim.config import MachineConfig
+from repro_torch.core.warpsim.timing import HOST_ENGINES
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = nvcc_build.BUILD_DIR
@@ -121,18 +122,30 @@ def status() -> dict:
     }
 
 
+#: Every engine name a caller may give (``timing.HOST_ENGINES`` and the
+#: family engines, ``"auto"`` first).
+ENGINES = ("auto", "cuda", "torch") + HOST_ENGINES
+
+
 def resolve_engine(engine: str, device) -> str:
     """``"cuda"`` (the kernels) on a CUDA device, ``"torch"`` (the plain
-    versions) on the CPU. ``"auto"`` resolves from `device`; an engine that
-    does not match the device raises."""
+    versions) on the CPU; ``"auto"`` resolves from `device`, and a family
+    engine that does not match the device raises. The host engines
+    (``timing.HOST_ENGINES``) run on the host CPU whatever the device, and
+    come back as they are."""
     dev = torch.device(device)
     want = {"cuda": "cuda", "cpu": "torch"}.get(dev.type)
     if want is None:
         raise ValueError(f"unsupported device {dev}: use cuda or cpu")
     if engine == "auto":
         return want
-    if engine not in ("cuda", "torch"):
-        raise ValueError(f"unknown engine {engine!r}; use auto|cuda|torch")
+    if engine in HOST_ENGINES:
+        return engine
+    if engine not in ENGINES:
+        hint = (" (the reference's device engine: the port's is 'cuda', "
+                "on a CUDA device)" if engine == "pallas" else "")
+        raise ValueError(f"unknown engine {engine!r}{hint}; use "
+                         f"{'|'.join(ENGINES)}")
     if engine != want:
         raise ValueError(f"engine {engine!r} does not run on device {dev}")
     return engine

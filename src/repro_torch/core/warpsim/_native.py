@@ -1,18 +1,23 @@
-"""The study's aggregation core, in C on the host.
+"""The study's host C cores: the aggregation core and the scheduling loop.
 
-Expansion phase 2 (``divergence.aggregate_stream``) replays a ThreadTrace
-for one expansion key. The numpy pass does it one vectorised step per
-event; this core (``csrc/warpsim_aggregate.c``) does the same walk in C,
-faster, and gives the same columns bit for bit (all-integer arithmetic,
-canonical sort orders). It runs on the host, where the trace lives, so
-the study's host stages shrink while the card runs the family kernels.
+* ``csrc/warpsim_aggregate.c`` — expansion phase 2
+  (``divergence.aggregate_stream``) replays a ThreadTrace for one
+  expansion key. The numpy pass does it one vectorised step per event;
+  this core does the same walk in C, faster, and gives the same columns
+  bit for bit (all-integer arithmetic, canonical sort orders). It runs on
+  the host, where the trace lives, so the study's host stages shrink
+  while the card runs the family kernels.
+* ``csrc/warpsim_loop.c`` — the timing model's scheduling loop
+  (``warpsim_run``), the ``native`` engine of ``timing.simulate``: the
+  ``fast`` engine's loop in C, operand for operand, on the host CPU.
 
-The source is built at first use with ``cc -O2 -fPIC -shared
+Each source is built at first use with ``cc -O2 -fPIC -shared
 -ffp-contract=off -fno-fast-math`` into ``<repo>/build/repro_torch/``
 (keyed by a hash of the source and flags) and bound through ctypes. A
-failed build raises with the compiler's output: the study's path has no
-fallback to the numpy pass, which stays as the plain version the tests
-hold this core against.
+failed build raises with the compiler's output: there is no fallback to
+the numpy pass or to the ``fast`` engine, which stay as the plain
+versions the tests hold these cores against. Sweeps build both in the
+parent before a process pool starts, so its workers only load them.
 """
 
 from __future__ import annotations
@@ -27,15 +32,19 @@ import numpy as np
 
 from repro_torch import _nvcc as build_mod
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "warpsim_aggregate.c"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "warpsim_aggregate.c"
+LOOP_SOURCE = CSRC / "warpsim_loop.c"
 BUILD_DIR = build_mod.BUILD_DIR
 CFLAGS = ("-O2", "-fPIC", "-shared", "-ffp-contract=off", "-fno-fast-math")
 
-# The library, loaded once: the first of several threads (the sweep
-# service's) builds and binds it while the others wait.
+# The libraries, loaded once each: the first of several threads (the
+# sweep service's) builds and binds one while the others wait.
 _LIB_LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_PATH: Optional[str] = None
+_LOOP_LIB: Optional[ctypes.CDLL] = None
+_LOOP_LIB_PATH: Optional[str] = None
 
 
 def find_cc() -> str:
@@ -45,32 +54,61 @@ def find_cc() -> str:
         if path:
             return path
     raise RuntimeError("no C compiler (cc, gcc or clang) on PATH: the "
-                       "aggregation core needs one")
+                       "host C cores need one")
 
 
 _cc = find_cc
 
 
 def build() -> str:
-    """Build the core (once per source hash); returns the library's path.
-
-    Raises RuntimeError with the compiler's output when the build fails.
+    """Build the aggregation core (once per source hash); returns the
+    library's path. Raises RuntimeError with the compiler's output when
+    the build fails.
     """
     return build_mod.build_shared(SOURCE, [], CFLAGS, BUILD_DIR, _cc,
                                   tool="cc")
 
 
+def build_loop() -> str:
+    """Build the scheduling loop (once per source hash); returns the
+    library's path. Raises RuntimeError with the compiler's output when
+    the build fails.
+    """
+    return build_mod.build_shared(LOOP_SOURCE, [], CFLAGS, BUILD_DIR, _cc,
+                                  tool="cc")
+
+
 def load() -> str:
-    """Build (when needed) and load the core; returns the library's path.
-    Raises RuntimeError with the compiler's output when the build fails."""
+    """Build (when needed) and load the aggregation core; returns its
+    path. Raises RuntimeError with the compiler's output when the build
+    fails."""
     _lib()
     return _LIB_PATH
 
 
+def load_loop() -> str:
+    """Build (when needed) and load the scheduling loop; returns its path.
+    Raises RuntimeError with the compiler's output when the build fails."""
+    _loop_lib()
+    return _LOOP_LIB_PATH
+
+
+def available() -> bool:
+    """True iff both cores build and load on this host (the first call
+    builds them). A report for callers that ask: the engines never fall
+    back on it, they raise."""
+    try:
+        load()
+        load_loop()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def status() -> dict:
-    """The core's report for the sweep service's ``/healthz`` (the
-    counterpart of the reference's ``_native.status``): whether it is
-    loaded, from which library, and the engine that aggregates
+    """The aggregation core's report for the sweep service's ``/healthz``
+    (the counterpart of the reference's ``_native.status``): whether it
+    is loaded, from which library, and the engine that aggregates
     (``native``: this core; nothing else aggregates on the study's path,
     so an unloaded core is ``unloaded``, never a fallback)."""
     loaded = _LIB is not None
@@ -94,6 +132,69 @@ def _lib() -> ctypes.CDLL:
         lib.warpsim_aggregate.restype = ctypes.c_int
         _LIB, _LIB_PATH = lib, path
     return _LIB
+
+
+def _loop_lib() -> ctypes.CDLL:
+    global _LOOP_LIB, _LOOP_LIB_PATH
+    if _LOOP_LIB is not None:
+        return _LOOP_LIB
+    with _LIB_LOCK:
+        if _LOOP_LIB is not None:
+            return _LOOP_LIB
+        path = build_loop()
+        lib = ctypes.CDLL(path)
+        ptr, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+        lib.warpsim_run.argtypes = ([i64] + [ptr] * 7 + [i64] * 5
+                                    + [f64] * 4 + [ptr])
+        lib.warpsim_run.restype = ctypes.c_int
+        _LOOP_LIB, _LOOP_LIB_PATH = lib, path
+    return _LOOP_LIB
+
+
+def _canon(a, dtype) -> np.ndarray:
+    if isinstance(a, np.ndarray) and a.dtype == dtype \
+            and a.flags.c_contiguous:
+        return a
+    return np.ascontiguousarray(a, dtype=dtype)
+
+
+def run_scheduling_loop(n_warps: int, op_start, issue, kind, blk_off,
+                        blk_len, blocks, nbytes, cfg
+                        ) -> Optional[Tuple[float, int, int, int]]:
+    """Run the C scheduling loop over one stream's CSR columns on `cfg`.
+
+    Returns ``(raw_cycles, offchip, merged, l1_hits)``, or None when the
+    loop declines the machine as the reference's does (a geometry with
+    no L1 set, controller or SM, or more blocks in flight on an SM than
+    its fixed outstanding table holds): the caller then runs the ``fast``
+    engine, whose tables are unbounded, and gets the same numbers.
+    Raises RuntimeError if the build fails or the loop runs out of memory.
+    """
+    lib = _loop_lib()
+    n_sets = cfg.l1_size_bytes // (cfg.transaction_bytes * cfg.l1_ways)
+    if n_sets <= 0 or cfg.num_mem_ctrls <= 0 or cfg.num_sms <= 0:
+        return None
+    out = np.zeros(4, dtype=np.float64)
+    # Canonical arrays bound to locals for the call: the raw pointers must
+    # not outlive their arrays.
+    arrs = (_canon(op_start, np.int64), _canon(issue, np.int64),
+            _canon(kind, np.int8), _canon(blk_off, np.int64),
+            _canon(blk_len, np.int64), _canon(blocks, np.int64),
+            _canon(nbytes, np.int64))
+    code = lib.warpsim_run(
+        n_warps, *(a.ctypes.data for a in arrs),
+        cfg.num_sms, cfg.num_mem_ctrls, n_sets, cfg.l1_ways,
+        1 if cfg.ideal_coalescing else 0,
+        float(cfg.dram_cycles_per_transaction),
+        float(cfg.dram_latency_cycles),
+        float(cfg.l1_hit_latency), float(cfg.pipeline_depth),
+        out.ctypes.data)
+    if code == 2:
+        return None
+    if code != 0:
+        raise RuntimeError(f"warpsim_run failed ({code}): out of memory "
+                           f"for {n_warps} warps")
+    return float(out[0]), int(out[1]), int(out[2]), int(out[3])
 
 
 def run_aggregation(trace, cfg) -> Tuple[np.ndarray, ...]:

@@ -3,16 +3,18 @@
 * :class:`Study` — a declarative bench × machine × seed grid (or a dense
   warp-size range) plus the timing `engine` (``"cuda"``: the family
   kernels; ``"torch"``: their plain versions on the CPU; ``"auto"``:
-  whichever the device runs). JSON-safe via :meth:`Study.to_dict` /
-  :meth:`Study.from_dict`, in the reference's encoding (the sweep
-  service's ``POST /study`` body).
+  whichever the device runs; ``"native"``, ``"fast"``, ``"fast_nested"``,
+  ``"event"``: the host engines, on the host CPU). JSON-safe via
+  :meth:`Study.to_dict` / :meth:`Study.from_dict`, in the reference's
+  encoding (the sweep service's ``POST /study`` body).
 * :class:`StudyResult` — flat :class:`RunRecord` tuples in the study's
   fixed cell order, the run's stats, and accessors (:meth:`~StudyResult.by`,
   :meth:`~StudyResult.one`, :meth:`~StudyResult.per_bench`,
   :meth:`~StudyResult.grid`, :meth:`~StudyResult.summary`,
   :meth:`~StudyResult.bands`, :meth:`~StudyResult.to_json`).
 * :class:`Backend` — where a study runs: :class:`InProcessBackend` (this
-  process, one family launch per trace family on the session's device),
+  process, one family launch per trace family on the session's device, or
+  a host engine, serially or in a process pool),
   :class:`ServiceBackend` (a running sweep daemon, ``POST /study``) and
   :class:`QueueBackend` (enqueue on a daemon, drain through the work
   queue's worker loop on the session's device). All three give the same
@@ -296,19 +298,45 @@ class Backend:
 
 
 class InProcessBackend(Backend):
-    """This process: one family launch per trace family on the session's
-    device, through the session's caches."""
+    """This process, through the session's caches: one family launch per
+    trace family on the session's device, or a host engine serially or in
+    a process pool (the sweep's modes: `parallel`, `max_workers`,
+    `group_expansion`, `reuse_expansion`, `share_traces`, as
+    ``sweep.run_sweep_with_stats`` takes them).
+
+    `result_cache` (when given) overrides the session's (the
+    ``runner.run_suite(cache=...)`` contract rides through here).
+    """
 
     name = "inprocess"
 
+    def __init__(self, parallel: Optional[bool] = None,
+                 max_workers: Optional[int] = None,
+                 group_expansion: bool = True,
+                 reuse_expansion: bool = True,
+                 share_traces: bool = True,
+                 result_cache: Optional[sweep_mod.ResultCache] = None):
+        self.parallel = parallel
+        self.max_workers = max_workers
+        self.group_expansion = group_expansion
+        self.reuse_expansion = reuse_expansion
+        self.share_traces = share_traces
+        self.result_cache = result_cache
+
     def run(self, study: Study, session: "Session") -> StudyResult:
         spec = study.to_spec()
+        cache = (self.result_cache if self.result_cache is not None
+                 else session.result_cache)
         results, stats = sweep_mod.run_sweep_with_stats(
-            spec, cache=session.result_cache, device=session.device,
-            engine=study.engine,
+            spec, cache=cache, parallel=self.parallel,
+            max_workers=self.max_workers, engine=study.engine,
+            group_expansion=self.group_expansion,
+            reuse_expansion=self.reuse_expansion,
+            share_traces=self.share_traces,
             persist_traces=session.persist_traces,
             trace_cache=session.trace_cache,
-            expansion_cache=session.expansion_cache)
+            expansion_cache=session.expansion_cache,
+            device=session.device)
         return StudyResult(records=records_from_grid(spec, results),
                            stats=stats, backend=self.name)
 

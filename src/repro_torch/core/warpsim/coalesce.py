@@ -8,14 +8,18 @@ segment. Aggregation never crosses a warp boundary.
 SW+ "ideal coalescing" (paper §4.1) extends merging across *all* threads of
 an SM: a read that targets a 64 B block with an outstanding request merges
 into it and issues no new off-core transaction. That part is stateful (it
-depends on what is in flight) and lives in the family kernel's outstanding
-table (``csrc/warpsim_family.cuh``); write accesses never merge (paper §7).
+depends on what is in flight): the event engine keeps it in the pending
+lines of :class:`L1Cache` plus a per-SM table, the other engines in their
+own outstanding tables (the family kernel's in ``csrc/warpsim_family.cuh``,
+the C loop's in ``csrc/warpsim_loop.c``); write accesses never merge
+(paper §7).
 """
 
 from __future__ import annotations
 
 import functools
 import zlib
+from typing import Dict
 
 import numpy as np
 
@@ -98,3 +102,46 @@ def warp_transactions_bytes(
     blocks, counts = np.unique(addresses // block_bytes, return_counts=True)
     nbytes = np.minimum(counts * _WORD, block_bytes)
     return blocks, nbytes
+
+
+class L1Cache:
+    """Set-associative LRU cache over 64 B block ids (48 KB, 8-way).
+
+    Lines carry a *fill time*: a line allocated at miss time is pending
+    until its DRAM transaction completes. A pending line doubles as the
+    outstanding-request record that SW+'s ideal coalescing merges into;
+    the baseline machines treat a pending line as a miss and issue a
+    redundant off-core transaction (the small-warp coalescing loss of
+    paper §1/§3).
+    """
+
+    def __init__(self, size_bytes: int, ways: int, block_bytes: int = 64):
+        self.n_sets = size_bytes // (block_bytes * ways)
+        self.ways = ways
+        # set index -> {block_id: [last_use_tick, fill_time]}
+        self._sets: Dict[int, Dict[int, list]] = {}
+        self._tick = 0
+
+    def lookup(self, block: int) -> float | None:
+        """Fill time of the line if present (may be in the future), else None."""
+        self._tick += 1
+        s = self._sets.setdefault(int(block) % self.n_sets, {})
+        ent = s.get(block)
+        if ent is None:
+            return None
+        ent[0] = self._tick
+        return ent[1]
+
+    def fill(self, block: int, fill_time: float) -> None:
+        """Allocate (or update) a line that completes at `fill_time`."""
+        self._tick += 1
+        s = self._sets.setdefault(int(block) % self.n_sets, {})
+        ent = s.get(block)
+        if ent is not None:
+            ent[0] = self._tick
+            ent[1] = min(ent[1], fill_time)
+            return
+        if len(s) >= self.ways:
+            victim = min(s, key=lambda b: s[b][0])  # LRU
+            del s[victim]
+        s[block] = [self._tick, fill_time]

@@ -36,7 +36,14 @@ family launch in :mod:`repro_torch.core.warpsim._cuda`):
    (``impl="python"``, its plain version); both give the same columns.
 
 :func:`expand_stream` composes the two phases; sweeps share one trace
-across every expansion key of a workload.
+across every expansion key of a workload. The single-phase walk of the
+reference's earlier generation is kept as :func:`expand_stream_single`:
+the implementation the tests hold both phases to, bit for bit, and the
+expansion of the sweep's baseline modes (``sweep_bench``'s ``cold_pr1``
+and ``cold_pr2``). A
+:class:`WarpStream` also materialises as the per-warp ``WarpOp`` lists the
+event engine reads (:meth:`WarpStream.to_warp_ops`,
+:func:`expand_workload`).
 """
 
 from __future__ import annotations
@@ -61,6 +68,23 @@ KIND_STORE = 2
 
 
 @dataclasses.dataclass
+class WarpOp:
+    """One schedulable macro-op of a warp."""
+
+    issue_cycles: int              # front-end occupancy
+    thread_insns: int              # executed thread-instructions (IPC)
+    lane_slots: int                # issued SIMD lane-slots (efficiency)
+    mem_blocks: Optional[np.ndarray] = None   # transaction block ids
+    mem_block_bytes: Optional[np.ndarray] = None  # touched bytes per txn
+    mem_thread_accesses: int = 0   # thread-level memory instructions
+    is_load: bool = True
+
+    @property
+    def is_mem(self) -> bool:
+        return self.mem_blocks is not None
+
+
+@dataclasses.dataclass
 class WarpStream:
     """Struct-of-arrays macro-op streams for all warps of one workload.
 
@@ -82,6 +106,55 @@ class WarpStream:
     blocks: np.ndarray     # int64[n_blocks] 64 B block ids
     nbytes: np.ndarray     # int64[n_blocks] touched bytes per transaction
     op_start: np.ndarray   # int64[n_warps+1] CSR row offsets
+
+    @property
+    def n_ops(self) -> int:
+        return len(self.warp)
+
+    def flat_csr(self):
+        """Flat per-op CSR columns as plain Python lists (+ block pools).
+
+        Returns ``(op_start, issue, kind, blk_off, blk_len, blocks,
+        nbytes)``, each a flat Python list indexed by op id (what the
+        ``fast`` engine's loop indexes). Computed once and cached on the
+        stream: machines that share an expansion reuse it.
+        """
+        cached = getattr(self, "_flat_csr", None)
+        if cached is None:
+            cached = (self.op_start.tolist(), self.issue.tolist(),
+                      self.kind.tolist(), self.blk_off.tolist(),
+                      self.blk_len.tolist(), self.blocks.tolist(),
+                      self.nbytes.tolist())
+            self._flat_csr = cached
+        return cached
+
+    def to_warp_ops(self) -> List[List[WarpOp]]:
+        """Materialize the per-warp ``WarpOp`` lists (the event engine's
+        input)."""
+        ops: List[List[WarpOp]] = [[] for _ in range(self.n_warps)]
+        warp = self.warp.tolist()
+        issue = self.issue.tolist()
+        tins = self.tins.tolist()
+        lanes = self.lanes.tolist()
+        kind = self.kind.tolist()
+        maccs = self.maccs.tolist()
+        off = self.blk_off.tolist()
+        ln = self.blk_len.tolist()
+        for i in range(self.n_ops):
+            k = kind[i]
+            if k == KIND_COMPUTE:
+                op = WarpOp(issue_cycles=issue[i], thread_insns=tins[i],
+                            lane_slots=lanes[i])
+            else:
+                o, l = off[i], ln[i]
+                op = WarpOp(issue_cycles=issue[i], thread_insns=tins[i],
+                            lane_slots=lanes[i],
+                            mem_blocks=self.blocks[o:o + l],
+                            mem_block_bytes=self.nbytes[o:o + l],
+                            mem_thread_accesses=maccs[i],
+                            is_load=(k == KIND_LOAD))
+            ops[warp[i]].append(op)
+        return ops
 
 
 def _grouped_transactions(keys, blocks: np.ndarray, block_bytes: int):
@@ -138,6 +211,169 @@ def _grouped_transactions(keys, blocks: np.ndarray, block_bytes: int):
     counts[-1] = len(sb) - idx[-1]
     nbytes = np.minimum(counts * coalesce._WORD, block_bytes)
     return k0[idx], sb[idx], nbytes
+
+
+def expand_stream_single(workload: Workload, cfg: MachineConfig) -> WarpStream:
+    """Single-phase expansion: one walk of the program per machine.
+
+    The reference's earlier expansion, kept as it was: the implementation
+    the tests hold the two-phase pipeline (trace build + per-key
+    aggregation, numpy or C) to, bit for bit, and the expansion of the
+    sweep's baseline modes (``share_traces=False``,
+    ``group_expansion=False``).
+    """
+    n = workload.n_threads
+    ws = cfg.warp_size
+    if n % ws:
+        raise ValueError(f"n_threads {n} not a multiple of warp size {ws}")
+    n_warps = n // ws
+    warp_of_thread = np.arange(n) // ws
+    rng = np.random.default_rng(workload.seed)
+    uid = [0]  # per-statement-instance unique id for address bases
+
+    g_simt = cfg.issue_cycles_per_group
+    simd = cfg.simd_width
+    tb = cfg.transaction_bytes
+
+    # Emission-order op columns (one chunk appended per statement pass).
+    c_warp: List[np.ndarray] = []
+    c_issue: List[np.ndarray] = []
+    c_tins: List[np.ndarray] = []
+    c_kind: List[np.ndarray] = []
+    c_maccs: List[np.ndarray] = []
+    c_blen: List[np.ndarray] = []
+    c_blocks: List[np.ndarray] = []
+    c_nbytes: List[np.ndarray] = []
+
+    # LW+ warp fragments: once an MIMD warp splits at a branch, its
+    # fragments never re-converge (paper §4.2/§6.1), so later memory
+    # accesses coalesce only within a fragment, not across the whole warp.
+    frag_id = np.zeros(n, dtype=np.int64)
+
+    # Per-mask index arrays, memoized by mask object identity: straight-line
+    # statement runs and loop bodies re-walk the *same* mask array. Entries
+    # pin their mask, so an id() can never be recycled while cached.
+    mask_stats: dict = {}
+
+    def _mask_stats(mask: np.ndarray):
+        ent = mask_stats.get(id(mask))
+        if ent is None:
+            tid = np.nonzero(mask)[0]
+            warp_all = warp_of_thread[tid]
+            act = np.bincount(warp_all, minlength=n_warps)
+            w_idx = np.nonzero(act)[0]
+            ent = (mask, tid, warp_all, w_idx, act[w_idx])
+            mask_stats[id(mask)] = ent
+        return ent
+
+    # Read-only filler chunks shared across appends by length.
+    zeros_cache: dict = {}
+    kind_cache: dict = {}
+
+    def _zeros(m: int) -> np.ndarray:
+        z = zeros_cache.get(m)
+        if z is None:
+            z = zeros_cache[m] = np.zeros(m, dtype=np.int64)
+        return z
+
+    def append(warps, issue, tins, kind, maccs, blen, blocks=None,
+               nbytes=None):
+        m = len(warps)
+        c_warp.append(np.asarray(warps, dtype=np.int64))
+        c_issue.append(np.asarray(issue, dtype=np.int64))
+        c_tins.append(np.asarray(tins, dtype=np.int64))
+        kc = kind_cache.get((kind, m))
+        if kc is None:
+            kc = kind_cache[(kind, m)] = np.full(m, kind, dtype=np.int8)
+        c_kind.append(kc)
+        c_maccs.append(np.asarray(maccs, dtype=np.int64))
+        c_blen.append(np.asarray(blen, dtype=np.int64))
+        if blocks is not None:
+            c_blocks.append(np.asarray(blocks, dtype=np.int64))
+            c_nbytes.append(np.asarray(nbytes, dtype=np.int64))
+
+    def emit_compute(mask: np.ndarray, count: int) -> None:
+        _, _, _, w_idx, a = _mask_stats(mask)
+        if cfg.mimd:
+            issue = count * -(-a // simd)
+        else:
+            issue = np.full(len(w_idx), count * g_simt, dtype=np.int64)
+        z = _zeros(len(w_idx))
+        append(w_idx, issue, count * a, KIND_COMPUTE, z, z)
+
+    def emit_mem(mask: np.ndarray, stmt: Mem) -> None:
+        uid[0] += 1
+        addrs = coalesce.generate_addresses(stmt, uid[0], n, rng)
+        _, tid, warp_all, w_idx, a = _mask_stats(mask)
+        blocks_all = addrs[tid] // tb
+        if cfg.mimd:
+            # Coalesce per never-reconverging fragment; fragment groups of
+            # one warp are emitted in ascending fragment-id order.
+            keys = (warp_all, frag_id[tid])
+        else:
+            keys = (warp_all,)
+        uwarp, ublocks, unbytes = _grouped_transactions(keys, blocks_all, tb)
+        starts = np.searchsorted(uwarp, w_idx, side="left")
+        ends = np.searchsorted(uwarp, w_idx, side="right")
+        if cfg.mimd:
+            issue = -(-a // simd)
+        else:
+            issue = np.full(len(w_idx), g_simt, dtype=np.int64)
+        append(w_idx, issue, a, KIND_LOAD if stmt.is_load else KIND_STORE,
+               a, ends - starts, ublocks, unbytes)
+
+    def walk(stmts: Sequence[Stmt], mask: np.ndarray) -> None:
+        if not mask.any():
+            return
+        for s in stmts:
+            if isinstance(s, Compute):
+                emit_compute(mask, s.n)
+            elif isinstance(s, Mem):
+                emit_mem(mask, s)
+            elif isinstance(s, Loop):
+                for _ in range(s.trips):
+                    walk(s.body, mask)
+                    if cfg.mimd:
+                        # LW+ re-forms warps at loop boundaries: fragments
+                        # persist only within an iteration.
+                        frag_id[mask] = 0
+            elif isinstance(s, Branch):
+                # The branch instruction itself.
+                emit_compute(mask, 1)
+                outcome = correlated_outcomes(rng, n, s.p_taken, s.corr)
+                if cfg.mimd:
+                    # Permanent fragment split (no reconvergence in LW+),
+                    # bounded at 4 fragments per warp.
+                    sorted_f = np.sort(frag_id.reshape(n_warps, ws), axis=1)
+                    nf = 1 + (sorted_f[:, 1:] != sorted_f[:, :-1]).sum(axis=1)
+                    can_split = (nf < 4)[warp_of_thread]
+                    upd = mask & can_split
+                    frag_id[upd] = frag_id[upd] * 2 + outcome[upd]
+                # Reconvergence stack: taken side, then not-taken side,
+                # reconverge at the immediate post-dominator (= here).
+                walk(s.then, mask & outcome)
+                walk(s.orelse, mask & ~outcome)
+            else:
+                raise TypeError(f"unknown stmt {type(s)}")
+
+    walk(workload.program, np.ones(n, dtype=bool))
+
+    if c_warp:
+        warp = np.concatenate(c_warp)
+        issue = np.concatenate(c_issue)
+        tins = np.concatenate(c_tins)
+        kind = np.concatenate(c_kind)
+        maccs = np.concatenate(c_maccs)
+        blen = np.concatenate(c_blen)
+    else:
+        warp = issue = tins = maccs = blen = np.zeros(0, dtype=np.int64)
+        kind = np.zeros(0, dtype=np.int8)
+    blocks = (np.concatenate(c_blocks) if c_blocks
+              else np.zeros(0, dtype=np.int64))
+    nbytes = (np.concatenate(c_nbytes) if c_nbytes
+              else np.zeros(0, dtype=np.int64))
+    return _assemble_stream(n_warps, simd, warp, issue, tins, kind, maccs,
+                            blen, blocks, nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -433,8 +669,20 @@ def expand_stream(workload: Workload, cfg: MachineConfig,
     return aggregate_stream(trace, cfg)
 
 
-def simd_efficiency(stream: WarpStream) -> float:
-    """Useful thread-instructions per issued lane-slot."""
-    useful = int(stream.tins.sum())
-    slots = int(stream.lanes.sum())
+def expand_workload(
+    workload: Workload, cfg: MachineConfig
+) -> List[List[WarpOp]]:
+    """Expand a workload into per-warp macro-op lists for `cfg`."""
+    return expand_stream(workload, cfg).to_warp_ops()
+
+
+def simd_efficiency(ops) -> float:
+    """Useful thread-instructions per issued lane-slot, of a
+    :class:`WarpStream` or of per-warp ``WarpOp`` lists."""
+    if isinstance(ops, WarpStream):
+        useful = int(ops.tins.sum())
+        slots = int(ops.lanes.sum())
+    else:
+        useful = sum(op.thread_insns for warp in ops for op in warp)
+        slots = sum(op.lane_slots for warp in ops for op in warp)
     return useful / max(slots, 1)

@@ -31,20 +31,42 @@ def run_suite(
     n_threads: Optional[int] = None,
     seed: int = 0,
     cache: Optional[sweep_mod.ResultCache] = None,
+    parallel: Optional[bool] = None,
     engine: str = "auto",
     seeds: Optional[Iterable[int]] = None,
+    group_expansion: bool = True,
+    reuse_expansion: bool = True,
+    share_traces: bool = True,
+    service_url: Optional[str] = None,
     device="cuda",
 ) -> Dict:
     """``results[machine][bench] -> SimResult`` (``results[seed][machine]
     [bench]`` with more than one seed), through a fresh
-    :class:`~repro_torch.core.warpsim.api.Session` on `device` over
-    `cache`. The nested-dict shape of the reference's ``run_suite``; new
-    code should hold the typed ``StudyResult``."""
+    :class:`~repro_torch.core.warpsim.api.Session` on `device`. The
+    nested-dict shape of the reference's ``run_suite``; new code should
+    hold the typed ``StudyResult``.
+
+    In process (an :class:`~repro_torch.core.warpsim.api.InProcessBackend`
+    over `cache`), `parallel` forces or forbids the host engines' process
+    pool (default: the sweep's rule), and `group_expansion`,
+    `reuse_expansion` and `share_traces` pick the sweep's modes. With
+    `service_url` the study runs on that daemon (an
+    :class:`~repro_torch.core.warpsim.api.ServiceBackend`): the daemon
+    owns the cache and the device, the local flags are ignored, and a dead
+    URL raises.
+    """
     study = api.Study(
         benches=tuple(benches), machines=machine_set, n_threads=n_threads,
         seeds=tuple(seeds) if seeds is not None else (seed,), engine=engine)
-    session = api.Session(device=device, result_cache=cache)
-    return session.run(study).legacy_grid()
+    if service_url:
+        backend: api.Backend = api.ServiceBackend(service_url)
+    else:
+        backend = api.InProcessBackend(
+            parallel=parallel, group_expansion=group_expansion,
+            reuse_expansion=reuse_expansion, share_traces=share_traces,
+            result_cache=cache)
+    session = api.Session(device=device)
+    return session.run(study, backend=backend).legacy_grid()
 
 
 def geomean(xs: Iterable[float]) -> float:

@@ -1896,9 +1896,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--port", type=int, default=8321,
                     help="0 picks an ephemeral port (printed on startup)")
     ap.add_argument("--engine", default="auto",
-                    choices=("auto", "cuda", "torch"),
+                    choices=_cuda.ENGINES,
                     help="cuda: the card's kernel; torch: its plain "
-                         "version on the CPU; auto (default): by --device")
+                         "version on the CPU; native, fast, fast_nested, "
+                         "event: the host engines, on the host CPU; auto "
+                         "(default): by --device")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card, default) or cpu; a daemon asked "
                          "for cuda on a host without a card exits non-zero")

@@ -1,5 +1,5 @@
-"""Warp-size sweep engine: one family launch per trace family, with
-content-addressed result caching.
+"""Warp-size sweep engine: the reference's modes, with one family launch
+per trace family on the card, and content-addressed result caching.
 
 * :class:`SweepSpec` — a declarative bench × machine × seed grid
   (optionally a dense warp-size range, 4..128) that enumerates its cells
@@ -11,7 +11,9 @@ content-addressed result caching.
   package wrote serves the other.
 * :class:`TraceCache` / :class:`ExpansionCache` — bounded LRUs of
   ThreadTraces and aggregated WarpStreams; the trace LRU can persist
-  ``.npz`` snapshots under ``<cache root>/traces/``.
+  ``.npz`` snapshots under ``<cache root>/traces/``. A run uses the LRUs
+  its caller passes (fresh ones when omitted); process-pool workers use
+  their process's :data:`TRACE_CACHE` and :data:`EXPANSION_CACHE`.
 * :func:`run_sweep_with_stats` — runs the uncached cells in two levels of
   sharing:
 
@@ -22,43 +24,69 @@ content-addressed result caching.
   - **Expansion keys.** Phase 2 (``aggregate_stream``, the C core) reads
     only :meth:`MachineConfig.expansion_key`, so within a family the cells
     are sub-bucketed by it and each key is aggregated once (SW+ rides on
-    ws8's stream: 6 machines, 5 aggregations).
+    ws8's stream: 6 machines, 5 aggregations). One expansion-key group is
+    one unit of work.
 
-  Every (expansion key × machine) unit of a family is then simulated in
-  ONE launch of the family kernels (:func:`_cuda.launch_family`). The
-  launch does not wait for the card: the host builds family i+1's trace,
-  streams and marshalled columns while family i's kernel runs, and reads
-  family i (:func:`_cuda.collect`) after launching i+1, so at most two
-  families are in flight.
+  With the family engines (``"cuda"``, the card's kernels, and
+  ``"torch"``, their plain versions; ``"auto"`` is one of them) every
+  unit of a family is simulated in ONE launch
+  (:func:`_cuda.launch_family`). The launch does not wait for the card:
+  the host builds family i+1's trace, streams and marshalled columns
+  while family i's kernel runs, and reads family i (:func:`_cuda.collect`)
+  after launching i+1, so at most two families are in flight. The
+  family engines never use a process pool: the launch replaces it.
 
-The reference's process pool (and its ``parallel``, ``group_expansion``
-and ``share_traces`` modes) has no counterpart: a family is one launch on
-the card.
+  With a host engine (``timing.HOST_ENGINES``: ``native``, ``fast``,
+  ``fast_nested``, ``event``) each unit is run by :func:`_run_group`,
+  serially or in a process pool (``parallel``, ``max_workers``; by
+  default the pool runs when there are at least 4 units and 4 CPUs, or
+  2 CPUs and an engine slower than ``native``, the reference's rule).
+  The pool starts its workers with ``forkserver``, never ``fork`` (the
+  parent may hold a CUDA context and threads); they import no torch, and
+  the C cores are built in the parent before it starts, so the workers
+  only load them. Results keep the spec's order whatever order the
+  workers finish in.
+
+  The reference's baseline modes come over with it:
+  ``share_traces=False`` expands each group in one single-phase walk
+  (``sweep_bench``'s ``cold_pr2``), ``group_expansion=False`` makes each
+  cell its own unit (a one-unit family launch per cell with a family
+  engine) and ``reuse_expansion=False`` bypasses every LRU (with both,
+  ``sweep_bench``'s ``cold_pr1``).
+
+``LAST_SWEEP_STATS`` is the reference's deprecated alias of the last
+run's stats (reading it warns); :func:`run_sweep_with_stats` returns each
+run's own.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
 import functools
 import hashlib
 import json
+import multiprocessing
 import os
+import sys
 import tempfile
 import threading
+import warnings
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.warpsim import _cuda
+from repro_torch.core.warpsim import _native
 from repro_torch.core.warpsim import machines as machines_mod
 from repro_torch.core.warpsim import obs as obs_mod
 from repro_torch.core.warpsim.config import MachineConfig
 from repro_torch.core.warpsim.divergence import (
     WarpStream, aggregate_stream, build_thread_trace, expand_stream,
+    expand_stream_single,
 )
 from repro_torch.core.warpsim.timing import (
-    SimResult, loop_result, simulate, stream_totals,
+    HOST_ENGINES, SimResult, loop_result, simulate, stream_totals,
 )
 from repro_torch.core.warpsim.trace import (
     BENCHMARKS, TRACE_FIELDS, ThreadTrace, Workload, get_workload,
@@ -293,11 +321,14 @@ class ExpansionCache:
 
     def get(self, workload: Workload, cfg: MachineConfig,
             trace: Optional[ThreadTrace] = None,
-            trace_fn=None) -> WarpStream:
+            trace_fn=None,
+            single_phase: bool = False) -> WarpStream:
         """Cached stream for ``(workload, cfg.expansion_key())``.
 
         On a miss the stream is aggregated from `trace` (or from calling
-        `trace_fn`, resolved only on a miss), else expanded from scratch.
+        `trace_fn`, resolved only on a miss), else built by the
+        single-phase walk when ``single_phase=True`` (the ``cold_pr2``
+        baseline), else expanded from scratch in two phases.
         """
         key = (workload.name, workload.n_threads, workload.seed,
                cfg.expansion_key())
@@ -312,8 +343,12 @@ class ExpansionCache:
             self.misses += 1
         if trace is None and trace_fn is not None:
             trace = trace_fn()
-        stream = (aggregate_stream(trace, cfg) if trace is not None
-                  else expand_stream(workload, cfg))
+        if trace is not None:
+            stream = aggregate_stream(trace, cfg)
+        elif single_phase:
+            stream = expand_stream_single(workload, cfg)
+        else:
+            stream = expand_stream(workload, cfg)
         with self._lock:
             self._streams[key] = (workload, stream)
             while len(self._streams) > self.maxsize:
@@ -329,6 +364,11 @@ class ExpansionCache:
             self._streams.clear()
             self.hits = 0
             self.misses = 0
+
+
+EXPANSION_CACHE_SIZE = 64
+#: This process's expansion LRU: the one pool workers use.
+EXPANSION_CACHE = ExpansionCache(EXPANSION_CACHE_SIZE)
 
 
 # Part of every on-disk trace key: bumped when the snapshot encoding
@@ -456,6 +496,28 @@ class TraceCache:
             self.hits = self.misses = self.disk_hits = self.builds = 0
 
 
+TRACE_CACHE_SIZE = 32
+#: This process's trace LRU: the one pool workers use.
+TRACE_CACHE = TraceCache(TRACE_CACHE_SIZE)
+
+# The deprecated alias: the stats of the last run in this process, one
+# dict updated in place (callers import it by value). Reads go through
+# the module ``__getattr__`` below, which warns.
+_LAST_SWEEP_STATS: Dict[str, int] = {}  # guarded-by: _STATS_LOCK
+_STATS_LOCK = threading.Lock()
+
+
+def __getattr__(name: str):
+    if name == "LAST_SWEEP_STATS":
+        warnings.warn(
+            "sweep.LAST_SWEEP_STATS is deprecated: it is overwritten by "
+            "every concurrent sweep in the process. Use "
+            "run_sweep_with_stats() (or api.Session.run(...).stats) for a "
+            "per-run snapshot.", DeprecationWarning, stacklevel=2)
+        return _LAST_SWEEP_STATS
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 # ---------------------------------------------------------------------------
 # Sweep specification
 # ---------------------------------------------------------------------------
@@ -576,6 +638,108 @@ def family_major_cells(cells: List[Cell]) -> List[Cell]:
 # ---------------------------------------------------------------------------
 
 
+#: The engines that simulate a trace family in one launch; they never use
+#: a process pool.
+FAMILY_ENGINES = ("cuda", "torch")
+#: How the pool starts its workers: not ``fork``, since the parent may
+#: hold a CUDA context and threads (the pipelined launches, the service's).
+POOL_START_METHOD = "forkserver"
+
+# One unit of worker work: (bench, n_threads, seed, [configs sharing one
+# expansion key], engine, reuse_expansion, share_trace, trace_dir), the
+# reference's payload. Payloads are ordered family-major, so a pool's
+# chunks keep a family's groups in one worker, whose trace LRU builds the
+# family's trace once.
+_GroupPayload = Tuple[str, Optional[int], int, List[MachineConfig], str,
+                      bool, bool, Optional[str]]
+
+
+def pool_context():
+    """The multiprocessing context of the sweep's process pool: the
+    ``forkserver`` start method, whose server imports this module and the
+    pool's worker loop (``concurrent.futures.process``) once, so each
+    worker starts as a fork of a process that holds no CUDA context, no
+    threads and no torch.
+
+    multiprocessing still runs the caller's main script again in each
+    worker, as ``__mp_main__`` (the server does not preload it), so a
+    script needs a ``__main__`` guard, and its top level is part of every
+    worker's start; a ``-c`` program or an interactive session has none.
+    The server finds this module on ``PYTHONPATH`` or among the installed
+    packages: CPython 3.12.3's server ignores a ``sys.path`` entry made at
+    run time (3.12.12's applies it), and then each worker imports the port
+    itself.
+    """
+    ctx = multiprocessing.get_context(POOL_START_METHOD)
+    ctx.set_forkserver_preload(["concurrent.futures.process", __name__])
+    return ctx
+
+
+def pool_probe(_arg=None) -> Tuple[int, bool]:
+    """A pool worker's ``(pid, whether torch is imported)``: what a caller
+    maps over a fresh pool to time its start and to check that workers
+    import no torch."""
+    return os.getpid(), "torch" in sys.modules
+
+
+def _run_group(args: _GroupPayload,
+               trace_cache: Optional[TraceCache] = None,
+               expansion_cache: Optional[ExpansionCache] = None,
+               device="cpu") -> List[SimResult]:
+    """Worker: resolve one expansion key's stream, simulate every member.
+
+    Top-level so a pool can pickle it. The stream comes through
+    :func:`_group_stream` (the payload's reuse and share flags ride in it,
+    so they reach workers under any start method). `trace_cache` /
+    `expansion_cache` default to this process's :data:`TRACE_CACHE` and
+    :data:`EXPANSION_CACHE` (what pool workers use); a serial sweep passes
+    its own. `device` is read only by the family engines (a one-unit
+    launch per cell when ``group_expansion=False``).
+    """
+    tcache = TRACE_CACHE if trace_cache is None else trace_cache
+    ecache = EXPANSION_CACHE if expansion_cache is None else expansion_cache
+    wl, stream = _group_stream(args, tcache, ecache)
+    engine = args[4]
+    ops = stream.to_warp_ops() if engine == "event" else stream
+    out = []
+    for cfg in args[3]:
+        with obs_mod.stage("engine", engine=engine, bench=wl.name):
+            out.append(simulate(wl.name, ops, cfg, engine=engine,
+                                device=device))
+    return out
+
+
+def _group_stream(args: _GroupPayload, tcache: TraceCache,
+                  ecache: ExpansionCache) -> Tuple[Workload, WarpStream]:
+    """One payload's workload and aggregated stream, through the LRUs when
+    the payload reuses them (shared by the per-group path and the family
+    launches)."""
+    bench, n_threads, seed, cfgs, _engine, reuse, share, tdir = args
+    wl = get_workload(bench, n_threads=n_threads, seed=seed)
+    # The aggregate stage covers the expansion-LRU resolution; a cold
+    # trace build nests its trace_build stage inside it.
+    with obs_mod.stage("aggregate", bench=bench):
+        if reuse:
+            if share:
+                stream = ecache.get(
+                    wl, cfgs[0],
+                    trace_fn=lambda: _traced_build(tcache, wl, tdir))
+            else:
+                stream = ecache.get(wl, cfgs[0], single_phase=True)
+        else:
+            stream = (expand_stream(wl, cfgs[0]) if share
+                      else expand_stream_single(wl, cfgs[0]))
+    return wl, stream
+
+
+def _traced_build(tcache: TraceCache, wl: Workload,
+                  root: Optional[str]) -> ThreadTrace:
+    """Trace-LRU resolve under the ``trace_build`` stage (reached only on
+    an expansion-LRU miss)."""
+    with obs_mod.stage("trace_build", bench=wl.name):
+        return tcache.get(wl, root=root)
+
+
 def compute_cell(bench: str, cfg: MachineConfig,
                  n_threads: Optional[int] = None, seed: int = 0,
                  engine: str = "auto", device="cuda",
@@ -583,9 +747,9 @@ def compute_cell(bench: str, cfg: MachineConfig,
                  trace_cache: Optional[TraceCache] = None,
                  expansion_cache: Optional[ExpansionCache] = None
                  ) -> SimResult:
-    """Simulate one grid cell (a one-unit family launch) through the
-    trace/expansion LRUs (fresh ones when omitted), with trace snapshots
-    under `trace_dir` when given.
+    """Simulate one grid cell (a one-unit family launch, or a host
+    engine's run) through the trace/expansion LRUs (fresh ones when
+    omitted), with trace snapshots under `trace_dir` when given.
 
     The cell-at-a-time path of the sweep service, its queue workers and
     ``api.Session.cell``. Its stages are timed into the ambient
@@ -595,62 +759,86 @@ def compute_cell(bench: str, cfg: MachineConfig,
     tcache = TraceCache() if trace_cache is None else trace_cache
     ecache = ExpansionCache() if expansion_cache is None else expansion_cache
     wl = get_workload(bench, n_threads=n_threads, seed=seed)
-
-    def build_trace():
-        with obs_mod.stage("trace_build", bench=wl.name):
-            return tcache.get(wl, root=trace_dir)
-
     with obs_mod.stage("aggregate", bench=bench):
-        stream = ecache.get(wl, cfg, trace_fn=build_trace)
+        stream = ecache.get(
+            wl, cfg, trace_fn=lambda: _traced_build(tcache, wl, trace_dir))
     with obs_mod.stage("engine", engine=engine, bench=bench):
         return simulate(wl.name, stream, cfg, engine=engine, device=device)
 
 
-def run_sweep(spec: SweepSpec, cache: Optional[ResultCache] = None,
-              device="cuda", engine: str = "auto",
-              persist_traces: bool = False,
-              trace_cache: Optional[TraceCache] = None,
-              expansion_cache: Optional[ExpansionCache] = None):
+def run_sweep(
+    spec: SweepSpec,
+    cache: Optional[ResultCache] = None,
+    parallel: Optional[bool] = None,
+    max_workers: Optional[int] = None,
+    engine: str = "auto",
+    group_expansion: bool = True,
+    reuse_expansion: bool = True,
+    share_traces: bool = True,
+    persist_traces: bool = False,
+    trace_cache: Optional[TraceCache] = None,
+    expansion_cache: Optional[ExpansionCache] = None,
+    device="cuda",
+):
     """:func:`run_sweep_with_stats` without the stats."""
     results, _stats = run_sweep_with_stats(
-        spec, cache=cache, device=device, engine=engine,
+        spec, cache=cache, parallel=parallel, max_workers=max_workers,
+        engine=engine, group_expansion=group_expansion,
+        reuse_expansion=reuse_expansion, share_traces=share_traces,
         persist_traces=persist_traces, trace_cache=trace_cache,
-        expansion_cache=expansion_cache)
+        expansion_cache=expansion_cache, device=device)
     return results
 
 
 def run_sweep_with_stats(
     spec: SweepSpec,
     cache: Optional[ResultCache] = None,
-    device="cuda",
+    parallel: Optional[bool] = None,
+    max_workers: Optional[int] = None,
     engine: str = "auto",
+    group_expansion: bool = True,
+    reuse_expansion: bool = True,
+    share_traces: bool = True,
     persist_traces: bool = False,
     trace_cache: Optional[TraceCache] = None,
     expansion_cache: Optional[ExpansionCache] = None,
+    device="cuda",
 ) -> Tuple[Dict, Dict[str, int]]:
     """Run a sweep grid; returns ``(results, stats)``.
 
     ``results[machine][bench] -> SimResult`` for a one-seed spec, else
     ``results[seed][machine][bench]``, in the spec's order (the
     reference's shapes). Cells found in `cache` are not simulated; the
-    rest run one family launch per trace family (see the module
-    docstring), and their results are written to `cache`. With
-    ``persist_traces=True`` (and a `cache`) traces are also saved under
-    ``<cache root>/traces/`` and loaded by later runs.
+    rest run as the module docstring says, and their results are written
+    to `cache`. With ``persist_traces=True`` (and a `cache`, sharing and
+    reuse on) traces are also saved under ``<cache root>/traces/`` and
+    loaded by later runs.
+
+    `engine`: ``"cuda"`` (the family kernels) needs a CUDA `device`;
+    ``"torch"`` (their plain versions) runs on the CPU; ``"auto"``
+    resolves from `device`; the host engines (``native``, ``fast``,
+    ``fast_nested``, ``event``) run on the host CPU whatever the device.
+    `parallel` forces (True) or forbids (False) the process pool of the
+    host engines, `max_workers` sizes it (default: one worker a CPU, at
+    most one a unit); the family engines never use it.
+    `group_expansion`, `reuse_expansion` and `share_traces` are the
+    reference's modes (module docstring).
 
     `stats` holds the reference's keys: ``cells``, ``cache_hits``,
     ``cache_misses``, ``simulated``, ``peer_hits`` (0: there is no mesh),
     ``expansion_groups``, ``expansions_saved``, ``trace_families``,
-    ``traces_shared``, ``family_launches`` (one per simulated family: a
-    fully cached run launches nothing) and the LRU deltas
-    (``expansion_cache_*``, ``trace_cache_*``, ``trace_disk_hits``).
-    `trace_cache`/`expansion_cache` are the LRUs to use (fresh ones when
-    omitted).
-
-    ``engine="cuda"`` (the family kernels) needs a CUDA `device`;
-    ``engine="torch"`` (their plain versions) runs on the CPU.
+    ``traces_shared`` (0 without shared traces), ``family_launches`` (one
+    per simulated family with a family engine and grouping on; else 0)
+    and the LRU deltas of this process (``expansion_cache_*``,
+    ``trace_cache_*``, ``trace_disk_hits``; a pool's workers keep their
+    own). `trace_cache`/`expansion_cache` are the LRUs to use (fresh ones
+    when omitted).
     """
-    engine = _cuda.resolve_engine(engine, device)
+    if engine not in HOST_ENGINES:
+        # The family engines' module imports torch: only a run that
+        # launches them imports it.
+        from repro_torch.core.warpsim import _cuda
+        engine = _cuda.resolve_engine(engine, device)
     tcache = TraceCache() if trace_cache is None else trace_cache
     ecache = ExpansionCache() if expansion_cache is None else expansion_cache
     mset = spec.machine_set()
@@ -674,43 +862,106 @@ def run_sweep_with_stats(
         else:
             todo.append((cell, key))
 
-    families = _families(todo)
-    trace_dir = (os.path.join(cache.root, "traces")
-                 if cache is not None and persist_traces else None)
-
-    def scatter(launch, groups, name: str) -> None:
-        raw = _cuda.collect(launch)
-        i = 0
-        for stream, members in groups:
-            totals = stream_totals(stream)
-            for (mname, cfg, bench, _n, seed), key in members:
-                res = loop_result(name, cfg, raw[i], totals)
-                i += 1
-                results[seed].setdefault(mname, {})[bench] = res
-                if cache is not None:
-                    cache.put(key, res)
-
-    # Family i+1's host stages run while family i's launch does; family i
-    # is read after i+1 is launched, so at most two are in flight.
-    pending = None
-    for (bench, n_threads, seed), fam in families.items():
-        wl = get_workload(bench, n_threads=n_threads, seed=seed)
-        groups = []
-        pairs = []
-        for members in fam.values():
-            stream = ecache.get(
-                wl, members[0][0][1],
-                trace_fn=lambda wl=wl: tcache.get(wl, root=trace_dir))
-            groups.append((stream, members))
-            pairs.extend((stream, cell[1]) for cell, _key in members)
-        launch = _cuda.launch_family(pairs, device, engine)
-        if pending is not None:
-            scatter(*pending)
-        pending = (launch, groups, wl.name)
-    if pending is not None:
-        scatter(*pending)
-
+    if not group_expansion:
+        share_traces = False     # one cell a unit: nothing to share
+    # Trace family (bench, n_threads, seed), then expansion key within it;
+    # without grouping every cell is a family and a group of its own.
+    if group_expansion:
+        families = _families(todo)
+    else:
+        families = collections.OrderedDict(
+            ((i,), collections.OrderedDict([(i, [item])]))
+            for i, item in enumerate(todo))
     n_groups = sum(len(fam) for fam in families.values())
+    trace_dir = (os.path.join(cache.root, "traces")
+                 if cache is not None and share_traces and reuse_expansion
+                 and persist_traces else None)
+    payloads: List[_GroupPayload] = []
+    grp_members: List[List[Tuple[Cell, Optional[str]]]] = []
+    fam_sizes: List[int] = []
+    for fam in families.values():
+        fam_sizes.append(len(fam))
+        for members in fam.values():
+            first = members[0][0]
+            payloads.append((first[2], first[3], first[4],
+                             [cell[1] for cell, _key in members], engine,
+                             reuse_expansion, share_traces, trace_dir))
+            grp_members.append(members)
+
+    def scatter(members, group_res) -> None:
+        for (cell, key), res in zip(members, group_res):
+            mname, _cfg, bench, _n, seed = cell
+            results[seed].setdefault(mname, {})[bench] = res
+            if cache is not None:
+                cache.put(key, res)
+
+    if engine == "native" and payloads:
+        # Built here, once, before any pool starts: workers only load it.
+        _native.load_loop()
+    ncpu = os.cpu_count() or 1
+    if engine in FAMILY_ENGINES:
+        parallel = False         # a family launch replaces the pool
+    elif parallel is None:
+        # The reference's rule: a pool pays off when there is work per
+        # unit next to its start; a native cell is cheap, so below 4 CPUs
+        # it stays serial, while the Python engines take a second core.
+        cells_are_cheap = engine == "native"
+        parallel = len(payloads) >= 4 and (
+            ncpu >= 4 or (ncpu > 1 and not cells_are_cheap))
+
+    n_family_launches = 0
+    if parallel and payloads:
+        if share_traces:
+            _native.load()       # the workers' aggregation core, likewise
+        workers = max_workers or min(ncpu, len(payloads))
+        chunk = max(1, len(payloads) // (4 * workers))
+        with concurrent.futures.ProcessPoolExecutor(
+                workers, mp_context=pool_context()) as ex:
+            for members, group_res in zip(
+                    grp_members, ex.map(_run_group, payloads,
+                                        chunksize=chunk)):
+                scatter(members, group_res)
+    elif engine in FAMILY_ENGINES and group_expansion:
+        from repro_torch.core.warpsim import _cuda
+
+        def read(launch, groups) -> None:
+            raw = _cuda.collect(launch)
+            i = 0
+            for wl, stream, members in groups:
+                totals = stream_totals(stream)
+                scatter(members, [
+                    loop_result(wl.name, cell[1], raw[i + j], totals)
+                    for j, (cell, _key) in enumerate(members)])
+                i += len(members)
+
+        # Family i+1's host stages run while family i's launch does;
+        # family i is read after i+1 is launched, so at most two are in
+        # flight. Payloads are family-major: a family is a run of them.
+        pending = None
+        start = 0
+        for k in fam_sizes:
+            groups = []
+            pairs = []
+            for payload, members in zip(payloads[start:start + k],
+                                        grp_members[start:start + k]):
+                wl, stream = _group_stream(payload, tcache, ecache)
+                groups.append((wl, stream, members))
+                pairs.extend((stream, cell[1]) for cell, _key in members)
+            start += k
+            launch = _cuda.launch_family(pairs, device, engine)
+            n_family_launches += 1
+            if pending is not None:
+                read(*pending)
+            pending = (launch, groups)
+        if pending is not None:
+            read(*pending)
+    else:
+        for members, payload in zip(grp_members, payloads):
+            scatter(members, _run_group(payload, trace_cache=tcache,
+                                        expansion_cache=ecache,
+                                        device=device))
+
+    n_families = len(families)
     stats = dict(
         cells=len(cells),
         cache_hits=hits,
@@ -719,15 +970,18 @@ def run_sweep_with_stats(
         peer_hits=0,
         expansion_groups=n_groups,
         expansions_saved=len(todo) - n_groups,
-        trace_families=len(families),
-        traces_shared=n_groups - len(families),
-        family_launches=len(families),
+        trace_families=n_families,
+        traces_shared=n_groups - n_families if share_traces else 0,
+        family_launches=n_family_launches,
         expansion_cache_hits=ecache.hits - exp_hits0,
         expansion_cache_misses=ecache.misses - exp_miss0,
         trace_cache_hits=tcache.hits - trc_hits0,
         trace_cache_misses=tcache.misses - trc_miss0,
         trace_disk_hits=tcache.disk_hits - trc_disk0,
     )
+    with _STATS_LOCK:
+        _LAST_SWEEP_STATS.clear()
+        _LAST_SWEEP_STATS.update(stats)
     ordered = {seed: {mname: {b: results[seed][mname][b]
                               for b in spec.benches}
                       for mname in mset}

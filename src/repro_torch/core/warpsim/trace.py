@@ -452,6 +452,11 @@ _FACTORIES = {
 
 BENCHMARKS = tuple(_FACTORIES)
 
+# Paper-reported behavior classes (Section 7), used in validation tests.
+DIVERGENT = ("BFS", "MP", "MU", "NQU", "SCN")
+COALESCING_HUNGRY = ("BKP", "GAS", "SR1", "SR2")
+INSENSITIVE = ("FWAL", "DYN")
+
 
 @functools.lru_cache(maxsize=256)
 def _workload(name: str, n_threads: Optional[int], seed: int) -> Workload:
@@ -469,3 +474,25 @@ def get_workload(name: str, n_threads: Optional[int] = None,
         return _workload(name.upper(), n_threads, seed)
     except KeyError:
         raise KeyError(f"unknown benchmark {name!r}; have {BENCHMARKS}") from None
+
+
+def program_stats(program: Sequence[Stmt]) -> dict:
+    """Static instruction mix of a program (single thread, expected path)."""
+    n_compute = n_mem = n_branch = 0
+
+    def walk(stmts, weight=1.0):
+        nonlocal n_compute, n_mem, n_branch
+        for s in stmts:
+            if isinstance(s, Compute):
+                n_compute += weight * s.n
+            elif isinstance(s, Mem):
+                n_mem += weight
+            elif isinstance(s, Loop):
+                walk(s.body, weight * s.trips)
+            elif isinstance(s, Branch):
+                n_branch += weight
+                walk(s.then, weight * s.p_taken)
+                walk(s.orelse, weight * (1 - s.p_taken))
+
+    walk(program)
+    return {"compute": n_compute, "mem": n_mem, "branch": n_branch}

@@ -57,6 +57,7 @@ from repro_torch.core.warpsim.sweep import (
     Cell, ExpansionCache, TraceCache, cell_key, compute_cell,
     family_major_cells,
 )
+from repro_torch.core.warpsim.timing import HOST_ENGINES
 
 _PENDING, _LEASED, _DONE = "pending", "leased", "done"
 
@@ -565,9 +566,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--job", required=True, help="job id from POST /sweep")
     ap.add_argument("--worker-id", default=None)
     ap.add_argument("--engine", default="auto",
-                    choices=("auto", "cuda", "torch"),
+                    choices=("auto", "cuda", "torch") + HOST_ENGINES,
                     help="cuda: the card's kernel; torch: its plain "
-                         "version on the CPU; auto: by --device")
+                         "version on the CPU; native, fast, fast_nested, "
+                         "event: the host engines, on the host CPU; auto: "
+                         "by --device")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card, default) or cpu")
     ap.add_argument("--poll-seconds", type=float, default=0.5)
