@@ -34,9 +34,10 @@
    call), and holds every record bit for bit against the reference grid
    file
    ``src/repro_torch/core/warpsim/data/paper_grid_seeds012.json``.
-   Three more runs time the host stages by host clock (trace builds,
-   aggregations, marshalling, the rest of each launch, the waits for
-   results) and the wall; a run under torch.profiler gives its wall,
+   Three more runs time the host stages as the program observes them
+   into ``warpsim_stage_seconds`` (trace builds, aggregations,
+   marshalling, the rest of each launch, the waits for results) and the
+   wall; a run under torch.profiler gives its wall,
    device busy time and idle share, beside chip run 8's, and whether the
    wall is below the host stages plus the busy time (host and card
    overlapping: each family's host stages run while the family before
@@ -308,7 +309,6 @@ SWEEP_FILES = {"dense": os.path.join(STUDY_DATA, "dense_grid_seed0.json"),
                "simd": os.path.join(STUDY_DATA, "simd_grids_seed0.json")}
 # Chip run 8 of the paper study (PR 16), beside which this run's are printed.
 RUN8_STUDY = {"wall_s": 0.850, "busy_ms": 179.7, "idle": 0.7576}
-HOST_STAGES = ("trace", "aggregate", "marshal", "launch", "wait")
 SOURCE = "src/repro_torch/core/warpsim/csrc/warpsim_family.cu"
 REPLACES = {"ws_prep_kernel": "src/repro/core/warpsim/_pallas.py:192",
             "ws_family_kernel": "src/repro/core/warpsim/_pallas.py:233",
@@ -426,8 +426,11 @@ def bound_ms(byts, ops, peak_ops=PEAK_OPS_PER_S):
 
 def _on_device(evt) -> bool:
     """A record of work on the card (a kernel, copy or set), not a CPU
-    operator: the operators' self device time repeats their kernels'."""
-    return str(getattr(evt, "device_type", "")).endswith("CUDA")
+    operator (the operators' self device time repeats their kernels') and
+    not a program span's range on the card (``obs.stage`` under the
+    profiler)."""
+    return (str(getattr(evt, "device_type", "")).endswith("CUDA")
+            and not getattr(evt, "is_user_annotation", False))
 
 
 def _filler(torch, pad):
@@ -598,44 +601,26 @@ def check_records(records, want, label) -> None:
              f"reference")
 
 
-@contextlib.contextmanager
-def stage_timers(sweep_mod, cuda_mod):
-    """Within the block, sum the host-clock seconds of the study's host
-    stages (the dict it yields): the trace builds and aggregations the
-    sweep calls, the marshalling and the rest of each family launch (the
-    enqueue), and the waits for a launch's results. Wraps the functions
-    where the sweep looks them up."""
-    secs = dict.fromkeys(HOST_STAGES, 0.0)
-    targets = {"trace": (sweep_mod, "build_thread_trace"),
-               "aggregate": (sweep_mod, "aggregate_stream"),
-               "marshal": (cuda_mod, "marshal"),
-               "launch": (cuda_mod, "launch_family"),
-               "wait": (cuda_mod, "collect")}
-    saved = {k: getattr(m, n) for k, (m, n) in targets.items()}
-
-    def timed(key, fn):
-        def call(*args, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                secs[key] += time.perf_counter() - t0
-        return call
-    for key, (mod, name) in targets.items():
-        setattr(mod, name, timed(key, saved[key]))
-    try:
-        yield secs
-    finally:
-        for key, (mod, name) in targets.items():
-            setattr(mod, name, saved[key])
-        secs["launch"] -= secs["marshal"]   # marshal runs inside the launch
+#: The study's stages, as the program observes them into
+#: ``warpsim_stage_seconds`` (``trace_build`` runs inside ``aggregate``).
+STUDY_STAGES = ("trace_build", "aggregate", "marshal", "launch", "wait")
 
 
-def split_line(secs, wall) -> str:
-    """The host-stage split of one study run, in ms, and the rest."""
-    parts = " ".join(f"{k} {1e3 * secs[k]:.3f}" for k in HOST_STAGES)
-    rest = wall - sum(secs.values())
-    return f"{parts}, other host {1e3 * rest:.3f} ms"
+def stage_seconds(obs_mod) -> dict:
+    """Seconds the process's default observability domain holds for each
+    of :data:`STUDY_STAGES` so far."""
+    snap = obs_mod.default().registry.snapshot().get(
+        "warpsim_stage_seconds", {})
+    return {k: snap.get(f'{{stage="{k}"}}.sum', 0.0) for k in STUDY_STAGES}
+
+
+def stage_split(before: dict, after: dict, wall: float) -> str:
+    """The study's host stages between two :func:`stage_seconds`, in ms
+    (aggregation less the trace builds inside it), and the rest."""
+    secs = {k: after[k] - before[k] for k in STUDY_STAGES}
+    secs["aggregate"] -= secs["trace_build"]
+    parts = " ".join(f"{k} {1e3 * v:.3f}" for k, v in secs.items())
+    return f"{parts}, other host {1e3 * (wall - sum(secs.values())):.3f} ms"
 
 
 @contextlib.contextmanager
@@ -2334,6 +2319,7 @@ def main() -> None:
     from repro_torch import _nvcc
     from repro_torch import kernels as lm_kernels
     from repro_torch.core.warpsim import _cuda, _native, api, machines
+    from repro_torch.core.warpsim import obs as obs_mod
     from repro_torch.core.warpsim import sweep as sweep_mod
     from repro_torch.core.warpsim.trace import BENCHMARKS
     from repro_torch.kernels import _lib as lm_lib
@@ -2471,26 +2457,29 @@ def main() -> None:
     stamp("the study's host stages, wall and idle share")
     walls = []
     for i in range(3):
-        with stage_timers(sweep_mod, _cuda) as secs:
-            t0 = time.perf_counter()
-            api.Session(device=dev).run(study)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+        before = stage_seconds(obs_mod)
+        t0 = time.perf_counter()
+        api.Session(device=dev).run(study)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
         print(f"  unprofiled run {i + 1}: wall {1e3 * walls[-1]:.3f} ms: "
-              f"{split_line(secs, walls[-1])} [{card}]")
+              f"{stage_split(before, stage_seconds(obs_mod), walls[-1])} "
+              f"[{card}]")
     print(f"study wall, unprofiled, median of 3: "
           f"{statistics.median(walls):.4f} s (run 8: "
           f"{RUN8_STUDY['wall_s']} s) [{card}]")
-    with stage_timers(sweep_mod, _cuda) as secs:
-        t_wall, parts = profiled_run(
-            torch, lambda: api.Session(device=dev).run(study))
+    before = stage_seconds(obs_mod)
+    t_wall, parts = profiled_run(
+        torch, lambda: api.Session(device=dev).run(study))
+    after = stage_seconds(obs_mod)
     busy = sum(parts.values())
-    host = sum(secs[k] for k in ("trace", "aggregate", "marshal", "launch"))
+    host = sum(after[k] - before[k]
+               for k in ("aggregate", "marshal", "launch"))
     print(f"traced run: wall {1e3 * t_wall:.3f} ms, device busy "
           f"{busy:.3f} ms, idle share {1 - busy / (1e3 * t_wall):.4f} (run 8: "
           f"{RUN8_STUDY['busy_ms']} ms, {RUN8_STUDY['idle']}; all from this "
           f"run, under torch.profiler) [{card}]")
-    print(f"  host stages: {split_line(secs, t_wall)}")
+    print(f"  host stages: {stage_split(before, after, t_wall)}")
     print(f"  overlap: wall {1e3 * t_wall:.3f} ms "
           f"{'<' if 1e3 * t_wall < 1e3 * host + busy else '>='} host stages "
           f"{1e3 * host:.3f} + device busy {busy:.3f} = "

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import _nvcc as nvcc_build
+from repro_torch.core.warpsim import obs as obs_mod
 from repro_torch.core.warpsim.config import MachineConfig
 from repro_torch.core.warpsim.timing import HOST_ENGINES
 
@@ -667,6 +668,18 @@ def _check_family(fam: Family) -> None:
 
 
 @dataclasses.dataclass
+class K2Timing:
+    """The timing events around one K2 launch, read by :func:`collect`
+    once the launch's results are in, into the ambient domain's K2
+    families (:func:`k2_metrics`)."""
+
+    start: "torch.cuda.Event"
+    end: "torch.cuda.Event"
+    placement: str
+    steps: int              # warp-ops of the launch's longest unit
+
+
+@dataclasses.dataclass
 class Launch:
     """A family launched by :func:`launch_family`, read by :func:`collect`.
 
@@ -674,15 +687,37 @@ class Launch:
     non-blocking copy fills behind the launch, and `done` is the event
     recorded after that copy. `inputs` keeps the marshalled family's
     device tensors, which the kernel reads, alive until the launch is read.
+    `family` is the family's id for the stages' spans (``bench/n_threads/
+    seed``, when the caller gave it); `k2` holds K2's timing events (on a
+    card, with observability on).
     """
 
     cycles: torch.Tensor    # float64[U]
     counts: torch.Tensor    # int64[U, 3]
     done: Optional["torch.cuda.Event"]
     inputs: Optional[Family]
+    family: Optional[str] = None
+    k2: Optional[K2Timing] = None
 
 
-def launch_family(pairs, device="cuda", engine: str = "auto") -> Launch:
+def k2_metrics(ob: obs_mod.Observability
+               ) -> Tuple[obs_mod.Histogram, obs_mod.Counter]:
+    """`ob`'s ``warpsim_k2_seconds{placement}`` histogram and
+    ``warpsim_k2_steps_total{placement}`` counter, made at the first
+    call."""
+    reg = ob.registry
+    return (reg.histogram("warpsim_k2_seconds",
+                          "Device seconds of one K2 launch (timing events "
+                          "around it), by placement of the units' state",
+                          labelnames=("placement",)),
+            reg.counter("warpsim_k2_steps_total",
+                        "Steps of the K2 launches (each launch's longest "
+                        "unit's warp-ops), by placement",
+                        labelnames=("placement",)))
+
+
+def launch_family(pairs, device="cuda", engine: str = "auto",
+                  family: Optional[str] = None) -> Launch:
     """Marshal a trace family and launch it, in ONE kernel launch, without
     waiting for the card.
 
@@ -690,7 +725,13 @@ def launch_family(pairs, device="cuda", engine: str = "auto") -> Launch:
     key x machine variant of one ThreadTrace (streams may repeat across
     variants that share an expansion). `engine` must match `device`
     (:func:`resolve_engine`): the kernel on a card, the plain versions on
-    the CPU (which finish before this returns).
+    the CPU (which finish before this returns). `family` names the family
+    in the ``marshal`` and ``launch`` stages' spans.
+
+    On a card, with observability on, a pair of timing events brackets
+    K2 on the stream; :func:`collect` reads them. On a stream that other
+    threads launch on at once (the service's), a launch's time may hold
+    another thread's work queued between its events.
     """
     resolve_engine(engine, device)
     col_cache: dict = {}
@@ -700,24 +741,48 @@ def launch_family(pairs, device="cuda", engine: str = "auto") -> Launch:
         if cols is None:
             cols = col_cache[id(stream)] = stream_cols(stream)
         units.append((cols, cfg))
-    fam = marshal(units, device)
-    cycles, counts = simulate_family(fam)
-    if fam.device.type == "cpu":
-        return Launch(cycles, counts, None, None)
-    host_c = torch.empty(cycles.shape, dtype=cycles.dtype, pin_memory=True)
-    host_n = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
-    host_c.copy_(cycles, non_blocking=True)
-    host_n.copy_(counts, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(fam.device))
-    return Launch(host_c, host_n, done, fam)
+    with obs_mod.stage("marshal", family=family, units=len(units)):
+        fam = marshal(units, device)
+    with obs_mod.stage("launch", family=family, units=len(units)):
+        if fam.device.type == "cpu":
+            cycles, counts = simulate_family(fam)
+            return Launch(cycles, counts, None, None, family)
+        k2 = None
+        stream = torch.cuda.current_stream(fam.device)
+        if obs_mod.enabled():
+            k2 = K2Timing(torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True),
+                          placement(fam),
+                          max(len(cols.issue) for cols, _cfg in units))
+            k2.start.record(stream)
+        cycles, counts = simulate_family(fam)
+        if k2 is not None:
+            k2.end.record(stream)
+        host_c = torch.empty(cycles.shape, dtype=cycles.dtype,
+                             pin_memory=True)
+        host_n = torch.empty(counts.shape, dtype=counts.dtype,
+                             pin_memory=True)
+        host_c.copy_(cycles, non_blocking=True)
+        host_n.copy_(counts, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+        return Launch(host_c, host_n, done, fam, family, k2)
 
 
 def collect(launch: Launch) -> List[Tuple[float, int, int, int]]:
     """Wait for a launch and return ``(raw_cycles, offchip, merged,
-    l1_hits)`` per pair, in order."""
-    if launch.done is not None:
-        launch.done.synchronize()
+    l1_hits)`` per pair, in order. K2's timing events, recorded before the
+    awaited one, are read after the wait, which they add nothing to."""
+    with obs_mod.stage("wait", family=launch.family,
+                       units=len(launch.cycles)):
+        if launch.done is not None:
+            launch.done.synchronize()
+    k2 = launch.k2
+    if k2 is not None:
+        seconds, steps = k2_metrics(obs_mod.current_obs())
+        seconds.labels(placement=k2.placement).observe(
+            1e-3 * k2.start.elapsed_time(k2.end))
+        steps.labels(placement=k2.placement).inc(k2.steps)
     return [(c, o, m, h) for c, (o, m, h) in zip(launch.cycles.tolist(),
                                                   launch.counts.tolist())]
 

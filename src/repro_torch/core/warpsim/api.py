@@ -487,7 +487,8 @@ class Session:
 
         Every run is one trace: remote backends propagate its id over the
         ``X-Warpsim-Op`` header, so a study's hops across daemons
-        reassemble from their ``/debug/trace`` dumps.
+        reassemble from their ``/debug/trace`` dumps. Its root is also the
+        ``study`` stage of ``warpsim_stage_seconds``.
         """
         if isinstance(study, sweep_mod.SweepSpec):
             study = Study.from_spec(study)

@@ -37,6 +37,49 @@ one clock read pair plus a dict append under a lock — tens of
 microseconds, negligible next to a cell simulation; ``WARPSIM_OBS=0``
 reduces every hook to a near-no-op for the paranoid.
 
+The study loop's stages, each once a study or once a family launch,
+never once a cell (attributes: the family ``bench/n_threads/seed`` and
+the unit count where one applies):
+
+=================  ==========================================  =========
+stage              what it times                               once a
+=================  ==========================================  =========
+``study``          ``api.Session.run``'s whole body (the       study
+                   trace's root, :func:`start_trace`)
+``result_lookup``  the ResultCache lookups of a sweep          study
+``plan``           grouping the misses into families and       study
+                   expansion keys, building the payloads
+``marshal``        ``_cuda.launch_family``'s ``marshal``       launch
+``launch``         K2's enqueue, the result copies and the     launch
+                   event record (``marshal`` excluded)
+``wait``           ``_cuda.collect``'s wait for the card       launch
+``scatter``        a family's records built and written to     launch
+                   the ResultCache
+=================  ==========================================  =========
+
+``marshal``/``launch``/``wait`` sit in ``_cuda``, so the service's
+one-unit launches (``compute_cell`` -> ``simulate`` -> ``run_family``)
+report them too.
+
+**K2's device time** — on a card, ``_cuda`` records a pair of timing
+events around each K2 launch and reads them once the launch's results
+are in (no extra sync). Two families on the ambient registry, made when
+the first launch is read (a fresh domain holds only the reference's
+names): ``warpsim_k2_seconds{placement}`` (histogram: device seconds a
+launch) and ``warpsim_k2_steps_total{placement}`` (counter: the
+launches' steps, the longest unit's warp-ops each); their quotient is
+K2's seconds a step in each placement (``shared``, ``global``). With
+``WARPSIM_OBS=0`` no event is recorded.
+
+**Profiler bridge** — while ``torch.profiler`` records in the calling
+thread, every :func:`stage` and every :func:`start_trace` root also opens
+``torch.profiler.record_function(name)``, so the program's spans land in
+the profiler's trace on the clock of the kernels and copies. This module
+imports no torch (a host-engine pool worker holds none): it finds torch
+in ``sys.modules``, and a process that never imported it runs no
+profiler. With no profiler recording, the check costs a fraction of a
+microsecond and no ``record_function`` is made.
+
 Determinism stance: this module reads a monotonic clock — the clock is
 injectable (:class:`Observability` takes ``clock=``), only ever measures
 durations, and nothing here feeds cache keys or cached records. The
@@ -58,10 +101,12 @@ import contextvars
 import dataclasses
 import hashlib
 import math
+import os
+import random
 import re
+import sys
 import threading
 import time
-import uuid
 from collections import deque
 from typing import (
     Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple,
@@ -629,12 +674,22 @@ def current_obs() -> Observability:
     return ctx.obs if ctx is not None else default()
 
 
+# Trace and span ids (16 and 12 hex digits, the reference's shapes) come
+# from a generator of this module's, seeded from the OS, and again in a
+# forked child. ``uuid4()`` reads ``os.urandom`` for every id: a system
+# call of 0.10-0.14 ms a call on an H100 host, paid by every stage of a
+# recording trace.
+_IDS = random.Random()
+if hasattr(os, "register_at_fork"):
+    os.register_at_fork(after_in_child=_IDS.seed)
+
+
 def new_trace_id() -> str:
-    return uuid.uuid4().hex[:16]
+    return f"{_IDS.getrandbits(64):016x}"
 
 
 def _new_span_id() -> str:
-    return uuid.uuid4().hex[:12]
+    return f"{_IDS.getrandbits(48):012x}"
 
 
 def _sampled(trace_id: str) -> bool:
@@ -681,6 +736,18 @@ def _record(ctx: TraceContext, name: str, span_id: str,
     ctx.obs.spans.record(rec)
 
 
+def _profiler_range(name: str):
+    """``torch.profiler.record_function(name)``, entered, while the torch
+    profiler records in this thread; else None. torch comes from
+    ``sys.modules``: this module never imports it."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return None
+    mark = torch.autograd.profiler.record_function(name)
+    mark.__enter__()
+    return mark
+
+
 @contextlib.contextmanager
 def start_trace(name: str, obs: Optional[Observability] = None,
                 trace_id: Optional[str] = None,
@@ -689,27 +756,37 @@ def start_trace(name: str, obs: Optional[Observability] = None,
 
     Inside an already-active context this degrades to :func:`span` — a
     nested ``Session.run`` inside a daemon request must extend the
-    request's trace, not fork a fresh one. With ``WARPSIM_OBS=0`` the
+    request's trace, not fork a fresh one. Either way the body's duration
+    is also observed into ``warpsim_stage_seconds{stage=name}`` (the
+    ``study`` stage), with no second span. With ``WARPSIM_OBS=0`` the
     body runs bare (yields None)."""
     if not enabled():
         yield None
         return
-    if _CONTEXT.get() is not None:
-        with span(name, **attrs) as ctx:
-            yield ctx
-        return
-    ob = obs or default()
-    tid = trace_id or new_trace_id()
-    ctx = TraceContext(tid, _new_span_id(), ob, recording=_sampled(tid))
+    outer = _CONTEXT.get()
+    ob = outer.obs if outer is not None else (obs or default())
+    mark = _profiler_range(name)
     t0 = ob.clock()
-    token = _CONTEXT.set(ctx)
     try:
-        yield ctx
+        if outer is not None:
+            with span(name, **attrs) as ctx:
+                yield ctx
+        else:
+            tid = trace_id or new_trace_id()
+            ctx = TraceContext(tid, _new_span_id(), ob,
+                               recording=_sampled(tid))
+            token = _CONTEXT.set(ctx)
+            try:
+                yield ctx
+            finally:
+                _CONTEXT.reset(token)
+                if ctx.recording:
+                    _record(ctx, name, ctx.span_id, None, t0,
+                            ob.clock() - t0, attrs)
     finally:
-        _CONTEXT.reset(token)
-        if ctx.recording:
-            _record(ctx, name, ctx.span_id, None, t0,
-                    ob.clock() - t0, attrs)
+        ob.stage_seconds.labels(stage=name).observe(ob.clock() - t0)
+        if mark is not None:
+            mark.__exit__(None, None, None)
 
 
 @contextlib.contextmanager
@@ -787,19 +864,23 @@ def event(name: str, **attrs) -> None:
 def stage(name: str, **attrs) -> Iterator[None]:
     """Time one cold-path stage: observe the ambient domain's
     ``warpsim_stage_seconds{stage=name}`` histogram and, when a trace is
-    recording, append a span. This is the only clock the determinism
-    modules ever (indirectly) touch — their own source stays clock-free
-    and the lint rule keeps it that way."""
+    recording, append a span; under a recording torch profiler, also
+    mark it in the profiler's trace. This is the only clock the
+    determinism modules ever (indirectly) touch — their own source stays
+    clock-free and the lint rule keeps it that way."""
     if not enabled():
         yield
         return
     ctx = _CONTEXT.get()
     ob = ctx.obs if ctx is not None else default()
+    mark = _profiler_range(name)
     t0 = ob.clock()
     try:
         yield
     finally:
         dur = ob.clock() - t0
+        if mark is not None:
+            mark.__exit__(None, None, None)
         ob.stage_seconds.labels(stage=name).observe(dur)
         if ctx is not None and ctx.recording:
             _record(ctx, name, _new_span_id(), ctx.span_id, t0, dur, attrs)

@@ -850,43 +850,49 @@ def run_sweep_with_stats(
     trc_disk0 = tcache.disk_hits
 
     hits = 0
-    todo: List[Tuple[Cell, Optional[str]]] = []
-    for cell in cells:
-        _mname, cfg, bench, n_threads, seed = cell
-        key = (cell_key(bench, cfg, n_threads, seed)
-               if cache is not None else None)
-        cached = cache.get(key) if cache is not None else None
-        if cached is not None:
-            hits += 1
-            results[seed].setdefault(cell[0], {})[bench] = cached
-        else:
-            todo.append((cell, key))
-
-    if not group_expansion:
-        share_traces = False     # one cell a unit: nothing to share
-    # Trace family (bench, n_threads, seed), then expansion key within it;
-    # without grouping every cell is a family and a group of its own.
-    if group_expansion:
-        families = _families(todo)
+    if cache is None:
+        todo: List[Tuple[Cell, Optional[str]]] = [(c, None) for c in cells]
     else:
-        families = collections.OrderedDict(
-            ((i,), collections.OrderedDict([(i, [item])]))
-            for i, item in enumerate(todo))
-    n_groups = sum(len(fam) for fam in families.values())
-    trace_dir = (os.path.join(cache.root, "traces")
-                 if cache is not None and share_traces and reuse_expansion
-                 and persist_traces else None)
-    payloads: List[_GroupPayload] = []
-    grp_members: List[List[Tuple[Cell, Optional[str]]]] = []
-    fam_sizes: List[int] = []
-    for fam in families.values():
-        fam_sizes.append(len(fam))
-        for members in fam.values():
-            first = members[0][0]
-            payloads.append((first[2], first[3], first[4],
-                             [cell[1] for cell, _key in members], engine,
-                             reuse_expansion, share_traces, trace_dir))
-            grp_members.append(members)
+        todo = []
+        with obs_mod.stage("result_lookup", cells=len(cells)):
+            for cell in cells:
+                _mname, cfg, bench, n_threads, seed = cell
+                key = cell_key(bench, cfg, n_threads, seed)
+                cached = cache.get(key)
+                if cached is not None:
+                    hits += 1
+                    results[seed].setdefault(cell[0], {})[bench] = cached
+                else:
+                    todo.append((cell, key))
+
+    with obs_mod.stage("plan", cells=len(todo)):
+        if not group_expansion:
+            share_traces = False     # one cell a unit: nothing to share
+        # Trace family (bench, n_threads, seed), then expansion key within
+        # it; without grouping every cell is a family and a group of its
+        # own.
+        if group_expansion:
+            families = _families(todo)
+        else:
+            families = collections.OrderedDict(
+                ((i,), collections.OrderedDict([(i, [item])]))
+                for i, item in enumerate(todo))
+        n_groups = sum(len(fam) for fam in families.values())
+        trace_dir = (os.path.join(cache.root, "traces")
+                     if cache is not None and share_traces
+                     and reuse_expansion and persist_traces else None)
+        payloads: List[_GroupPayload] = []
+        grp_members: List[List[Tuple[Cell, Optional[str]]]] = []
+        fam_sizes: List[int] = []
+        for fam in families.values():
+            fam_sizes.append(len(fam))
+            for members in fam.values():
+                first = members[0][0]
+                payloads.append((first[2], first[3], first[4],
+                                 [cell[1] for cell, _key in members],
+                                 engine, reuse_expansion, share_traces,
+                                 trace_dir))
+                grp_members.append(members)
 
     def scatter(members, group_res) -> None:
         for (cell, key), res in zip(members, group_res):
@@ -926,13 +932,15 @@ def run_sweep_with_stats(
 
         def read(launch, groups) -> None:
             raw = _cuda.collect(launch)
-            i = 0
-            for wl, stream, members in groups:
-                totals = stream_totals(stream)
-                scatter(members, [
-                    loop_result(wl.name, cell[1], raw[i + j], totals)
-                    for j, (cell, _key) in enumerate(members)])
-                i += len(members)
+            with obs_mod.stage("scatter", family=launch.family,
+                               units=len(raw)):
+                i = 0
+                for wl, stream, members in groups:
+                    totals = stream_totals(stream)
+                    scatter(members, [
+                        loop_result(wl.name, cell[1], raw[i + j], totals)
+                        for j, (cell, _key) in enumerate(members)])
+                    i += len(members)
 
         # Family i+1's host stages run while family i's launch does;
         # family i is read after i+1 is launched, so at most two are in
@@ -948,7 +956,10 @@ def run_sweep_with_stats(
                 groups.append((wl, stream, members))
                 pairs.extend((stream, cell[1]) for cell, _key in members)
             start += k
-            launch = _cuda.launch_family(pairs, device, engine)
+            wl = groups[0][0]
+            launch = _cuda.launch_family(
+                pairs, device, engine,
+                family=f"{wl.name}/{wl.n_threads}/{wl.seed}")
             n_family_launches += 1
             if pending is not None:
                 read(*pending)

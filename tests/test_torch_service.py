@@ -295,6 +295,61 @@ def test_stats_and_metrics_agree_in_both_parsers(tmp_path):
     assert ours['warpsim_stage_seconds_count{stage="engine"}'] == 6
 
 
+def test_metrics_show_the_one_unit_launches_stages(tmp_path):
+    """The service's cells are one-unit family launches (``compute_cell``
+    -> ``simulate`` -> ``run_family``): each simulated cell is one
+    ``marshal``, ``launch`` and ``wait`` in the daemon's ``/metrics``."""
+    svc = cpu_service(tmp_path)
+    with live(svc) as url:
+        tapi.Session(device="cpu", backend=tapi.ServiceBackend(url)).run(
+            small_study(seeds=(0,)))
+        text = twq._http_text(url + "/metrics")
+    samples = tobs.parse_exposition(text)
+    assert robs.parse_exposition(text) == samples
+    simulated = samples["warpsim_cells_simulated_total"]
+    assert simulated == 6
+    for stage in ("marshal", "launch", "wait"):
+        assert samples[
+            f'warpsim_stage_seconds_count{{stage="{stage}"}}'] == simulated
+
+
+def test_obs_imports_no_torch():
+    """The observability module finds torch in ``sys.modules`` for its
+    profiler bridge and never imports it (a host-engine pool worker holds
+    none)."""
+    code = ("import sys\n"
+            "import repro_torch.core.warpsim.obs as obs\n"
+            "with obs.start_trace('study'):\n"
+            "    with obs.stage('plan'):\n"
+            "        pass\n"
+            "print('torch' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "False"
+
+
+def test_trace_and_span_ids_keep_their_shape_and_differ_after_a_fork():
+    """Ids are the reference's shapes (16 and 12 hex digits), distinct,
+    and a forked child does not repeat its parent's sequence."""
+    ids = {tobs._new_span_id() for _ in range(10000)}
+    assert len(ids) == 10000
+    assert all(len(i) == 12 and int(i, 16) >= 0 for i in ids)
+    tid = tobs.new_trace_id()
+    assert len(tid) == 16 and int(tid, 16) >= 0
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.write(w, tobs._new_span_id().encode())
+        os._exit(0)
+    os.close(w)
+    child = os.read(r, 64).decode()
+    os.close(r)
+    os.waitpid(pid, 0)
+    assert len(child) == 12 and child != tobs._new_span_id()
+
+
 def test_metric_and_counter_names_are_the_reference_s():
     assert tservice._COUNTER_METRICS == rservice._COUNTER_METRICS
     assert (tservice._CLIENT_COUNTER_METRICS

@@ -46,6 +46,7 @@ from repro_torch.core.warpsim import api as tapi
 from repro_torch.core.warpsim import convert
 from repro_torch.core.warpsim import divergence as tdiv
 from repro_torch.core.warpsim import machines as tmachines
+from repro_torch.core.warpsim import obs as tobs
 from repro_torch.core.warpsim import runner as trunner
 from repro_torch.core.warpsim import sweep as tsweep
 from repro_torch.core.warpsim import timing as ttiming
@@ -358,6 +359,122 @@ def test_pipelined_sweep_matches_serial(monkeypatch):
     assert _plain(results, True) == _plain(ref, True)
 
 
+# ------------------------------------------ the study loop's stages
+
+
+def _stage_counts() -> dict:
+    """Observations of each stage in the default domain so far."""
+    snap = tobs.default().registry.snapshot().get("warpsim_stage_seconds",
+                                                  {})
+    return {k[len('{stage="'):-len('"}.count')]: int(v)
+            for k, v in snap.items() if k.endswith(".count")}
+
+
+LOOP_STAGES = ("study", "result_lookup", "plan", "marshal", "launch",
+               "wait", "scatter")
+
+
+def _loop_study(seed):
+    return tapi.Study(benches=GOLDEN_BENCHES[:2], n_threads=N_THREADS,
+                      seeds=(seed,), engine="torch")
+
+
+def test_study_stages_count_once_a_launch_and_once_a_study(tmp_path):
+    """``marshal``, ``launch``, ``wait`` and ``scatter`` are observed once a
+    family launch; ``study``, ``plan`` and ``result_lookup`` once a
+    ``Session.run`` (a warm one included, which launches nothing)."""
+    session = tapi.Session(device="cpu", cache_dir=str(tmp_path))
+    before = _stage_counts()
+    cold = session.run(_loop_study(0))
+    warm = session.run(_loop_study(0))
+    after = _stage_counts()
+    got = {k: after.get(k, 0) - before.get(k, 0) for k in LOOP_STAGES}
+    n = cold.stats["family_launches"]
+    assert n == 2 and warm.stats["family_launches"] == 0
+    assert got == {"study": 2, "result_lookup": 2, "plan": 2, "marshal": n,
+                   "launch": n, "wait": n, "scatter": n}
+
+
+def test_study_root_is_one_span_with_the_loops_stages_under_it():
+    ob = tobs.Observability()
+    with tobs.start_trace("study", obs=ob) as ctx:
+        tsweep.run_sweep_with_stats(_loop_study(1).to_spec(),
+                                    engine="torch", device="cpu")
+    spans = ob.spans.dump(ctx.trace_id)
+    names = [s["name"] for s in spans]
+    assert names.count("study") == 1
+    root = next(s for s in spans if s["name"] == "study")
+    assert root["parent"] is None
+    for name in ("plan", "marshal", "launch", "wait", "scatter"):
+        assert all(s["parent"] == root["span"] for s in spans
+                   if s["name"] == name), name
+    launch = next(s for s in spans if s["name"] == "launch")
+    assert launch["attrs"]["family"].split("/")[0] in GOLDEN_BENCHES[:2]
+    assert launch["attrs"]["units"] == 6
+    snap = ob.registry.snapshot()["warpsim_stage_seconds"]
+    assert snap['{stage="study"}.count'] == 1
+
+
+def _user_annotations(prof, path) -> list:
+    prof.export_chrome_trace(str(path))
+    with open(path, encoding="utf-8") as fh:
+        events = json.load(fh)["traceEvents"]
+    return [e["name"] for e in events if e.get("ph") == "X"
+            and e.get("cat") == "user_annotation"]
+
+
+def test_stages_mark_the_profilers_trace_only_while_it_records(
+        tmp_path, monkeypatch):
+    """Under torch.profiler the study's root and stages are user
+    annotations in its trace (the root once); outside it no
+    ``record_function`` is made."""
+    from torch.profiler import ProfilerActivity, profile
+    made = []
+    real = torch.autograd.profiler.record_function
+
+    def counting(name, *args, **kw):
+        made.append(name)
+        return real(name, *args, **kw)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", counting)
+    session = tapi.Session(device="cpu")
+    session.run(_loop_study(2))
+    assert made == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = session.run(_loop_study(3))
+    names = _user_annotations(prof, tmp_path / "trace.json")
+    n = res.stats["family_launches"]
+    assert names.count("study") == 1
+    for name in ("marshal", "launch", "wait", "scatter"):
+        assert names.count(name) == n, name
+    assert names.count("plan") == 1 and "aggregate" in names
+    assert sorted(made) == sorted(names)
+
+
+def test_collect_reads_k2s_events_into_its_families():
+    """The timing events of a launch are read after its wait, into the
+    ambient domain's ``warpsim_k2_seconds`` and ``warpsim_k2_steps_total``
+    by placement."""
+    class Event:
+        def elapsed_time(self, end):
+            return 2.5          # ms
+
+    ob = tobs.Observability()
+    wl = ttrace.get_workload("BFS", n_threads=N_THREADS, seed=0)
+    stream = tdiv.expand_stream(wl, tmachines.baseline(8))
+    launch = _cuda.launch_family([(stream, tmachines.baseline(8))],
+                                 device="cpu", family="BFS/128/0")
+    assert launch.k2 is None and launch.family == "BFS/128/0"
+    launch.k2 = _cuda.K2Timing(Event(), Event(), "shared", 40)
+    want = _cuda.collect(dataclasses.replace(launch, k2=None))
+    with tobs.bind(ob):
+        assert _cuda.collect(launch) == want
+    snap = ob.registry.snapshot()
+    assert snap["warpsim_k2_seconds"] == {
+        '{placement="shared"}.sum': 0.0025,
+        '{placement="shared"}.count': 1}
+    assert snap["warpsim_k2_steps_total"] == {'{placement="shared"}': 40}
+
+
 @pytest.mark.parametrize("seeds", [(0,), (1, 2)], ids=["one", "two"])
 def test_run_sweep_shape_and_stats_match_reference(seeds):
     rspec = rsweep.SweepSpec(benches=("BFS", "DYN"), n_threads=N_THREADS,
@@ -609,6 +726,38 @@ def test_warm_cache_on_card_launches_nothing(card, tmp_path):
     cell = tapi.Session(device=card).cell("BFS", "SW+", n_threads=N_THREADS)
     assert dataclasses.asdict(cell) == dataclasses.asdict(
         first.by(machine="SW+", bench="BFS").one())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("obs_on", [True, False], ids=["obs", "no_obs"])
+def test_k2_families_count_the_cards_launches_by_placement(card, obs_on,
+                                                           monkeypatch):
+    """On the card each K2 launch is one observation of its placement's
+    ``warpsim_k2_seconds`` and adds its longest unit's ops to
+    ``warpsim_k2_steps_total``; with observability off no event is
+    recorded and nothing is observed."""
+    if not obs_on:
+        monkeypatch.setenv(tobs.ENV_OBS, "0")
+    ob = tobs.Observability()
+    study = tapi.Study(benches=GOLDEN_BENCHES, n_threads=N_THREADS,
+                       engine="cuda")
+    _cuda.reset_launch_counts()
+    with tobs.bind(ob):
+        res = tapi.Session(device=card).run(study)
+    routes = {p: _cuda.route_count("ws_family_kernel", p)
+              for p in _cuda.PLACEMENTS}
+    snap = ob.registry.snapshot()
+    if not obs_on:
+        assert "warpsim_k2_seconds" not in snap
+        return
+    secs = snap["warpsim_k2_seconds"]
+    assert sum(routes.values()) == res.stats["family_launches"]
+    for p, n in routes.items():
+        assert secs.get(f'{{placement="{p}"}}.count', 0) == n
+        if n:
+            assert 0 < secs[f'{{placement="{p}"}}.sum'] < 60
+            assert snap["warpsim_k2_steps_total"][
+                f'{{placement="{p}"}}'] >= n
 
 
 if __name__ == "__main__":
