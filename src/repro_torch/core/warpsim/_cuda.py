@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import sys
 import threading
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -80,6 +81,20 @@ _LIB_PATH: Optional[str] = None
 _TORCH_DTYPE = {np.dtype(np.int64).str: torch.int64,
                 np.dtype(np.int8).str: torch.int8,
                 np.dtype(np.float64).str: torch.float64}
+#: Streams in a device's pool, which a study's family launches take in
+#: turn so that they run side by side (``sweep.run_sweep_with_stats``). A
+#: launch holds one SM a unit, 4-6 of an H100's 132 on the paper's grids,
+#: and the host prepares the next family in a third to a half of a
+#: family's K2 time, so three launches in flight keep K2 off the host's
+#: path; eight leave room for families whose chains run two or three
+#: times the mean.
+K2_STREAMS = 8
+_STREAMS_LOCK = threading.Lock()
+_STREAMS: Dict[torch.device, List["torch.cuda.Stream"]] = {}  # guarded-by: _STREAMS_LOCK
+# K2 launches whose results may not be in yet, as (stream, `done` event),
+# for the ``warpsim_k2_beside`` histogram; pruned at each launch.
+_FLIGHT_LOCK = threading.Lock()
+_IN_FLIGHT: List[Tuple[int, "torch.cuda.Event"]] = []  # guarded-by: _FLIGHT_LOCK
 
 
 def launch_count(kernel: str) -> int:
@@ -313,6 +328,15 @@ class Family:
         return self.up.device
 
 
+def _device(device) -> torch.device:
+    """`device` as a torch.device; raises for a CUDA one without a card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' asked for, but no CUDA device is "
+                           "available")
+    return dev
+
+
 def marshal(units: Sequence[Tuple[StreamCols, MachineConfig]],
             device="cuda") -> Family:
     """Concatenate units ``[(StreamCols, MachineConfig), ...]`` into one
@@ -323,10 +347,7 @@ def marshal(units: Sequence[Tuple[StreamCols, MachineConfig]],
     warps map to SMs as ``min(w * n_sms // n_warps, n_sms - 1)`` (in the
     kernel) and ``n_sets = l1_size_bytes // (transaction_bytes * ways)``.
     """
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' asked for, but no CUDA device is "
-                           "available")
+    dev = _device(device)
     if not units:
         raise ValueError("a family launch needs at least one unit")
     if len(units) > 65535:
@@ -699,6 +720,31 @@ class Launch:
     family: Optional[str] = None
     k2: Optional[K2Timing] = None
 
+    def finished(self) -> bool:
+        """Whether :func:`collect` would find the results in, without
+        waiting for them."""
+        return self.done is None or self.done.query()
+
+
+def launch_streams(device) -> Tuple[List[Optional["torch.cuda.Stream"]],
+                                    int]:
+    """The streams a study's family launches take in turn on `device`
+    (:data:`K2_STREAMS` of them, made at the first call; None each on the
+    CPU, where a launch has finished when it returns), and how many units
+    may run at once: the card's SM count, since K2 runs one block a unit
+    (unbounded on the CPU). Raises for a CUDA `device` without a card."""
+    dev = _device(device)
+    if dev.type != "cuda":
+        return [None] * K2_STREAMS, sys.maxsize
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _STREAMS_LOCK:
+        pool = _STREAMS.setdefault(dev, [])
+        pool.extend(torch.cuda.Stream(dev)
+                    for _ in range(K2_STREAMS - len(pool)))
+        streams = pool[:K2_STREAMS]
+    return streams, torch.cuda.get_device_properties(dev).multi_processor_count
+
 
 def k2_metrics(ob: obs_mod.Observability
                ) -> Tuple[obs_mod.Histogram, obs_mod.Counter]:
@@ -716,6 +762,22 @@ def k2_metrics(ob: obs_mod.Observability
                         labelnames=("placement",)))
 
 
+def k2_beside(ob: obs_mod.Observability) -> obs_mod.Histogram:
+    """`ob`'s ``warpsim_k2_beside`` histogram, made at the first call."""
+    return ob.registry.histogram(
+        "warpsim_k2_beside",
+        "Earlier K2 launches on other streams whose results were not in "
+        "yet, at each K2 launch", buckets=(0, 1, 2, 3, 4, 6, 8, 16))
+
+
+def _launches_beside(stream: int) -> int:
+    """K2 launches in flight on streams other than `stream`; forgets those
+    whose results are in."""
+    with _FLIGHT_LOCK:
+        _IN_FLIGHT[:] = [(s, e) for s, e in _IN_FLIGHT if not e.query()]
+        return sum(s != stream for s, _e in _IN_FLIGHT)
+
+
 def launch_family(pairs, device="cuda", engine: str = "auto",
                   family: Optional[str] = None) -> Launch:
     """Marshal a trace family and launch it, in ONE kernel launch, without
@@ -731,7 +793,9 @@ def launch_family(pairs, device="cuda", engine: str = "auto",
     On a card, with observability on, a pair of timing events brackets
     K2 on the stream; :func:`collect` reads them. On a stream that other
     threads launch on at once (the service's), a launch's time may hold
-    another thread's work queued between its events.
+    another thread's work queued between its events. The launch also
+    observes into ``warpsim_k2_beside`` how many earlier K2 launches on
+    other streams have not finished (:func:`k2_beside`).
     """
     resolve_engine(engine, device)
     col_cache: dict = {}
@@ -755,6 +819,8 @@ def launch_family(pairs, device="cuda", engine: str = "auto",
                           placement(fam),
                           max(len(cols.issue) for cols, _cfg in units))
             k2.start.record(stream)
+            k2_beside(obs_mod.current_obs()).observe(
+                _launches_beside(stream.cuda_stream))
         cycles, counts = simulate_family(fam)
         if k2 is not None:
             k2.end.record(stream)
@@ -766,6 +832,9 @@ def launch_family(pairs, device="cuda", engine: str = "auto",
         host_n.copy_(counts, non_blocking=True)
         done = torch.cuda.Event()
         done.record(stream)
+        if k2 is not None:
+            with _FLIGHT_LOCK:
+                _IN_FLIGHT.append((stream.cuda_stream, done))
         return Launch(host_c, host_n, done, fam, family, k2)
 
 

@@ -31,10 +31,20 @@ per trace family on the card, and content-addressed result caching.
   ``"torch"``, their plain versions; ``"auto"`` is one of them) every
   unit of a family is simulated in ONE launch
   (:func:`_cuda.launch_family`). The launch does not wait for the card:
-  the host builds family i+1's trace, streams and marshalled columns
-  while family i's kernel runs, and reads family i (:func:`_cuda.collect`)
-  after launching i+1, so at most two families are in flight. The
-  family engines never use a process pool: the launch replaces it.
+  the host builds the next family's trace, streams and marshalled
+  columns while the launched families' kernels run. Launches take the
+  streams of a per-device pool (:func:`_cuda.launch_streams`) in turn
+  and run side by side. A family is launched at once while the launches
+  pending are fewer than the pool's streams and their units, with its
+  own, fit the card's SMs (K2 runs one block a unit); else the oldest
+  pending launch is read (:func:`_cuda.collect`) first. A window with
+  nothing pending takes any family, so one wider than the card runs
+  alone. Pending launches are read oldest first: to make room, early once
+  finished (the launch just made excepted), and all at the run's end, so
+  the records and the ResultCache's writes keep the order of the
+  families. On the CPU a launch has finished when it returns, and family
+  i is read once family i+1 is launched. The family engines never use a
+  process pool: the launch replaces it.
 
   With a host engine (``timing.HOST_ENGINES``: ``native``, ``fast``,
   ``fast_nested``, ``event``) each unit is run by :func:`_run_group`,
@@ -928,9 +938,11 @@ def run_sweep_with_stats(
                                         chunksize=chunk)):
                 scatter(members, group_res)
     elif engine in FAMILY_ENGINES and group_expansion:
+        import torch
+
         from repro_torch.core.warpsim import _cuda
 
-        def read(launch, groups) -> None:
+        def read(launch, groups, _units) -> None:
             raw = _cuda.collect(launch)
             with obs_mod.stage("scatter", family=launch.family,
                                units=len(raw)):
@@ -942,12 +954,13 @@ def run_sweep_with_stats(
                         for j, (cell, _key) in enumerate(members)])
                     i += len(members)
 
-        # Family i+1's host stages run while family i's launch does;
-        # family i is read after i+1 is launched, so at most two are in
-        # flight. Payloads are family-major: a family is a run of them.
-        pending = None
+        # The window (module docstring): the pending launches, oldest
+        # first, as (launch, groups, units). Payloads are family-major: a
+        # family is a run of them.
+        streams, max_units = _cuda.launch_streams(device)
+        pending: collections.deque = collections.deque()
         start = 0
-        for k in fam_sizes:
+        for i, k in enumerate(fam_sizes):
             groups = []
             pairs = []
             for payload, members in zip(payloads[start:start + k],
@@ -956,16 +969,24 @@ def run_sweep_with_stats(
                 groups.append((wl, stream, members))
                 pairs.extend((stream, cell[1]) for cell, _key in members)
             start += k
+            while pending and (
+                    len(pending) >= len(streams)
+                    or sum(p[2] for p in pending) + len(pairs) > max_units):
+                read(*pending.popleft())
             wl = groups[0][0]
-            launch = _cuda.launch_family(
-                pairs, device, engine,
-                family=f"{wl.name}/{wl.n_threads}/{wl.seed}")
+            with torch.cuda.stream(streams[i % len(streams)]):
+                launch = _cuda.launch_family(
+                    pairs, device, engine,
+                    family=f"{wl.name}/{wl.n_threads}/{wl.seed}")
             n_family_launches += 1
-            if pending is not None:
-                read(*pending)
-            pending = (launch, groups)
-        if pending is not None:
-            read(*pending)
+            pending.append((launch, groups, len(pairs)))
+            # Read what has finished, but not the launch just made: on a
+            # card it has not, and on the CPU the next family's host
+            # stages come first, as with one stream.
+            while len(pending) > 1 and pending[0][0].finished():
+                read(*pending.popleft())
+        while pending:
+            read(*pending.popleft())
     else:
         for members, payload in zip(grp_members, payloads):
             scatter(members, _run_group(payload, trace_cache=tcache,

@@ -7,7 +7,8 @@
   written by either package is read by the other; a warm session
   simulates nothing; ``Session.cell`` equals the grid's record.
 * The sweep: one family launch per trace family, launches read after the
-  next family's launch, the reference's result shapes and stats keys,
+  next family's launch on the CPU and through a window of pending
+  launches on a card, the reference's result shapes and stats keys,
   ``spec_to_dict``/``Study.to_dict`` in the reference's JSON.
 * The entry points: ``runner``, the figures, ``python -m
   repro_torch.core.warpsim --dense --cache-dir``.
@@ -357,6 +358,115 @@ def test_pipelined_sweep_matches_serial(monkeypatch):
         rsweep.SweepSpec(benches=GOLDEN_BENCHES, n_threads=N_THREADS,
                          seeds=(0, 1)), parallel=False)
     assert _plain(results, True) == _plain(ref, True)
+
+
+class _KeepOrder(tsweep.ResultCache):
+    """A ResultCache that keeps the order of its writes."""
+
+    def __init__(self, root):
+        super().__init__(root)
+        self.order = []
+
+    def put(self, key, result):
+        self.order.append(key)
+        super().put(key, result)
+
+
+def _cache_files(root) -> dict:
+    return {name: open(os.path.join(root, name), "rb").read()
+            for name in sorted(os.listdir(root))}
+
+
+class _Card:
+    """``launch_family``, ``collect`` and ``launch_streams`` of a card with
+    `sms` SMs whose launches finish `lag` launches after they are made (or
+    only when read, with `lag` None); the work itself runs on the CPU."""
+
+    def __init__(self, sms, lag, launch, collect):
+        self.sms, self.lag = sms, lag
+        self._launch, self._collect = launch, collect
+        self.made = 0
+        self.events = []        # ("launch", i) and ("collect", i)
+        self.most_pending = 0
+
+    def launch_streams(self, device):
+        return [None] * _cuda.K2_STREAMS, self.sms
+
+    def launch_family(self, pairs, device, engine, family=None):
+        launch = _CardLaunch(self, self.made,
+                             self._launch(pairs, "cpu", engine, family=family))
+        self.made += 1
+        self.events.append(("launch", launch.index))
+        read = sum(e == "collect" for e, _ in self.events)
+        self.most_pending = max(self.most_pending, self.made - read)
+        return launch
+
+    def collect(self, launch):
+        self.events.append(("collect", launch.index))
+        return self._collect(launch.real)
+
+
+class _CardLaunch:
+    def __init__(self, card, index, real):
+        self.card, self.index, self.real = card, index, real
+        self.family = real.family
+
+    def finished(self):
+        lag = self.card.lag
+        return lag is not None and self.card.made - self.index > lag
+
+
+def _window_events(n, window, early):
+    """Launches and reads of `n` families through a window of `window`
+    launches: read when the window is full, or (`early`) as soon as the
+    next launch is made."""
+    if early and window > 1:
+        return [("launch", 0)] + [
+            e for k in range(1, n)
+            for e in (("launch", k), ("collect", k - 1))] + [
+            ("collect", n - 1)]
+    out = []
+    for k in range(n):
+        if k >= window:
+            out.append(("collect", k - window))
+        out.append(("launch", k))
+    return out + [("collect", k) for k in range(max(0, n - window), n)]
+
+
+@pytest.mark.parametrize("sms,streams,lag,window", [
+    (132, 8, None, 8), (18, 8, None, 3), (12, 8, None, 2), (6, 8, None, 1),
+    (4, 8, None, 1), (132, 2, None, 2), (132, 8, 1, 8), (18, 8, 1, 3)],
+    ids=["pool", "sms_over_units", "two_fit", "one_fits", "wider_than_card",
+         "pool_of_two", "early_reads", "early_reads_sms"])
+def test_family_window_reads_in_launch_order_within_its_depth(
+        tmp_path, monkeypatch, sms, streams, lag, window):
+    """The family loop on a card of `sms` SMs, with a pool of `streams`:
+    launches of 6 units stay within ``min(streams, sms // 6)`` pending (one
+    at a time when a family is wider than the card), are read oldest
+    first, early once finished, and all by the study's end; records and
+    ResultCache writes equal those of the serial loop on the CPU."""
+    spec = tsweep.SweepSpec(benches=GOLDEN_BENCHES, n_threads=128,
+                            seeds=(0, 1, 2))
+    monkeypatch.setattr(_cuda, "K2_STREAMS", 1)
+    serial_cache = _KeepOrder(str(tmp_path / "serial"))
+    serial, serial_stats = tsweep.run_sweep_with_stats(
+        spec, device="cpu", cache=serial_cache)
+    n = serial_stats["family_launches"]
+    assert n == 15
+    monkeypatch.setattr(_cuda, "K2_STREAMS", streams)
+    card = _Card(sms, lag, _cuda.launch_family, _cuda.collect)
+    for name in ("launch_streams", "launch_family", "collect"):
+        monkeypatch.setattr(_cuda, name, getattr(card, name))
+    cache = _KeepOrder(str(tmp_path / "window"))
+    results, stats = tsweep.run_sweep_with_stats(spec, device="cpu",
+                                                 cache=cache)
+    assert stats["family_launches"] == n
+    assert card.events == _window_events(n, window, lag is not None)
+    assert card.most_pending == (2 if lag is not None and window > 1
+                                 else window)
+    assert _plain(results, True) == _plain(serial, True)
+    assert cache.order == serial_cache.order and len(cache.order) == 90
+    assert _cache_files(cache.root) == _cache_files(serial_cache.root)
 
 
 # ------------------------------------------ the study loop's stages
