@@ -58,6 +58,19 @@ UP_COLS = ("warp_off", "op_off", "blk_off", "n_warps", "n_blocks", "n_sms",
 FP_COLS = ("hit_lat", "depth", "dram_lat", "svc_unit")
 _UP = {name: i for i, name in enumerate(UP_COLS)}
 _FP = {name: i for i, name in enumerate(FP_COLS)}
+#: Warps a unit may have for K2's lanes to keep their ready times in
+#: registers: ``WS_K * WS_LANES`` of csrc/warpsim_family.cuh (8 a lane, 32
+#: lanes). Above it, every step makes the popped warp's lane rescan its
+#: share of the unit's ready times in memory, ``WS_K`` loads a round.
+REGISTER_WARPS = 8 * 32
+
+
+def scan_rounds(n_warps: int) -> int:
+    """Rounds of loads one K2 step's rescan takes in a unit of `n_warps`
+    warps: ``ceil(n_warps / REGISTER_WARPS)`` above :data:`REGISTER_WARPS`,
+    0 at or below it, where the ready times sit in registers."""
+    return -(-n_warps // REGISTER_WARPS) if n_warps > REGISTER_WARPS else 0
+
 
 KERNELS = ("ws_prep_kernel", "ws_family_kernel")
 #: Where K2 keeps the units' state: the routes of ``ws_family_kernel``.
@@ -698,6 +711,7 @@ class K2Timing:
     end: "torch.cuda.Event"
     placement: str
     steps: int              # warp-ops of the launch's longest unit
+    rounds: int = 0         # its rescan rounds a step (:func:`scan_rounds`)
 
 
 @dataclasses.dataclass
@@ -762,6 +776,16 @@ def k2_metrics(ob: obs_mod.Observability
                         labelnames=("placement",)))
 
 
+def k2_scan_rounds(ob: obs_mod.Observability) -> obs_mod.Counter:
+    """`ob`'s ``warpsim_k2_scan_rounds_total{placement}`` counter, made at
+    the first call."""
+    return ob.registry.counter(
+        "warpsim_k2_scan_rounds_total",
+        "Rescan rounds on the K2 launches' critical chains (each launch's "
+        "longest unit's steps times its rounds a step), by placement",
+        labelnames=("placement",))
+
+
 def k2_beside(ob: obs_mod.Observability) -> obs_mod.Histogram:
     """`ob`'s ``warpsim_k2_beside`` histogram, made at the first call."""
     return ob.registry.histogram(
@@ -814,10 +838,12 @@ def launch_family(pairs, device="cuda", engine: str = "auto",
         k2 = None
         stream = torch.cuda.current_stream(fam.device)
         if obs_mod.enabled():
+            longest = max((cols for cols, _cfg in units),
+                          key=lambda cols: len(cols.issue))
             k2 = K2Timing(torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True),
-                          placement(fam),
-                          max(len(cols.issue) for cols, _cfg in units))
+                          placement(fam), len(longest.issue),
+                          scan_rounds(longest.n_warps))
             k2.start.record(stream)
             k2_beside(obs_mod.current_obs()).observe(
                 _launches_beside(stream.cuda_stream))
@@ -848,10 +874,13 @@ def collect(launch: Launch) -> List[Tuple[float, int, int, int]]:
             launch.done.synchronize()
     k2 = launch.k2
     if k2 is not None:
-        seconds, steps = k2_metrics(obs_mod.current_obs())
+        ob = obs_mod.current_obs()
+        seconds, steps = k2_metrics(ob)
         seconds.labels(placement=k2.placement).observe(
             1e-3 * k2.start.elapsed_time(k2.end))
         steps.labels(placement=k2.placement).inc(k2.steps)
+        k2_scan_rounds(ob).labels(placement=k2.placement).inc(
+            k2.steps * k2.rounds)
     return [(c, o, m, h) for c, (o, m, h) in zip(launch.cycles.tolist(),
                                                   launch.counts.tolist())]
 
@@ -867,10 +896,8 @@ def run_scheduling_loop(n_warps: int, op_start, issue, kind, blk_off,
                         blk_len, blocks, nbytes, cfg: MachineConfig,
                         device="cuda", engine: str = "auto"
                         ) -> Tuple[float, int, int, int]:
-    """One stream on one machine: a one-unit family launch."""
-    resolve_engine(engine, device)
-    cols = stream_cols(StreamCols(n_warps, op_start, issue, kind, blk_off,
-                                  blk_len, blocks, nbytes))
-    cycles, counts = simulate_family(marshal([(cols, cfg)], device))
-    o, m, h = counts[0].tolist()
-    return float(cycles[0]), o, m, h
+    """One stream on one machine: a one-unit family launch
+    (:func:`run_family`, so that K2's metrics observe it)."""
+    cols = StreamCols(n_warps, op_start, issue, kind, blk_off, blk_len,
+                      blocks, nbytes)
+    return run_family([(cols, cfg)], device, engine)[0]

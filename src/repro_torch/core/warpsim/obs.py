@@ -68,12 +68,16 @@ the first launch is read (a fresh domain holds only the reference's
 names): ``warpsim_k2_seconds{placement}`` (histogram: device seconds a
 launch) and ``warpsim_k2_steps_total{placement}`` (counter: the
 launches' steps, the longest unit's warp-ops each); their quotient is
-K2's seconds a step in each placement (``shared``, ``global``). A third,
-made at the first launch: ``warpsim_k2_beside`` (histogram, no labels:
-at each K2 launch, the earlier K2 launches on other streams whose
-results were not in yet; a study's launches take a pool of streams in
-turn, the service's share the current one and read 0), whose sum over
-its count is how many launches ran side by side. With
+K2's seconds a step in each placement (``shared``, ``global``). Read
+beside them, ``warpsim_k2_scan_rounds_total{placement}`` (counter: each
+launch's longest unit's steps times the rounds of loads a step of it
+rescans, ``_cuda.scan_rounds``; 0 for a unit of at most 256 warps,
+whose ready times sit in registers); over the steps, the rounds a step.
+Another, made at the first launch: ``warpsim_k2_beside`` (histogram,
+no labels: at each K2 launch, the earlier K2 launches on other streams
+whose results were not in yet; a study's launches take a pool of
+streams in turn, the service's share the current one and read 0), whose
+sum over its count is how many launches ran side by side. With
 ``WARPSIM_OBS=0`` no event is recorded and nothing is observed.
 
 **Profiler bridge** — while ``torch.profiler`` records in the calling

@@ -15,8 +15,9 @@ reference engine is bit-identical to every other.
 * The CUDA source's recurrence, built for the host with g++ (the host
   form of the warp's searches, K1 folded into K2's staging), equals the C
   core in both placements of K2's state, on the paper grid's seed-0
-  families, the dense and simd32 sweeps' seed-0 families and on odd,
-  16-SM and wider-than-32-way geometries; K1 alone
+  families, the dense and simd32 sweeps' seed-0 families, on odd,
+  16-SM and wider-than-32-way geometries and on V100-shaped families
+  whose units pass 256 warps (K2's rescan in memory); K1 alone
   equals ``prep_ref``; the multiply-high remainder equals Python's ``%``;
   the searches alone keep the tie rules.
 * The slice end to end: Session/Study records equal the reference's.
@@ -556,6 +557,39 @@ def test_host_build_matches_native_on_sweep_families(host_lib, bench, sweep):
             if sweep == "dense"
             else list(rmachines.warp_size_sweep(32).values()))
     _check_host_build(host_lib, get_workload(bench, seed=0), cfgs)
+
+
+def _v100_suite():
+    """The ``v100`` benchmark configuration's machines
+    (``warpbench/configs/v100.json``): 80 SMs of 2,048 threads, 8
+    controllers at 900 GB/s, 128 KB of L1, the paper's six machines at
+    SIMD 16."""
+    kw = dict(num_sms=80, threads_per_sm=2048, num_mem_ctrls=8,
+              dram_bw_gbps=180.0, core_clock_ghz=1.53, l1_size_bytes=131072)
+    return ([rmachines.baseline(w, 16, **kw) for w in (16, 32, 64, 128)]
+            + [rmachines.sw_plus(16, **kw), rmachines.lw_plus(16, **kw)])
+
+
+@pytest.mark.parametrize("n_threads,rounds", [(4224, 2), (8448, 3)])
+def test_host_build_matches_native_on_v100_units_over_256_warps(
+        host_lib, n_threads, rounds):
+    """K2's rescan path, where a lane's registers no longer hold its warps'
+    ready times: V100-shaped families whose widest units (ws16, SW+) have
+    264 warps (just over 256, not a multiple of it) and 528, in both
+    placements, bit for bit with the C core; and the records equal those
+    of the benchmark's plain reference (``warpbench.reference``)."""
+    from warpbench import reference as wref
+    wl = get_workload("BFS", n_threads=n_threads, seed=0)
+    fam = _check_host_build(host_lib, wl, _v100_suite())
+    widest = max(fam.up[:, _cuda.UP_COLS.index("n_warps")].tolist())
+    assert widest == n_threads // 16
+    assert _cuda.scan_rounds(widest) == rounds
+    ref, port = _family_pairs(wl, _v100_suite())
+    got = [dataclasses.asdict(ttiming.loop_result(
+        wl.name, cfg, loop, ttiming.stream_totals(stream)))
+        for (stream, cfg), loop in zip(port, _native_loops(ref))]
+    assert got == wref.records([(wl.name, n_threads, 0, dataclasses.asdict(
+        cfg)) for _stream, cfg in port])
 
 
 def _first_min_pops(ready, after):
