@@ -60,16 +60,25 @@ _UP = {name: i for i, name in enumerate(UP_COLS)}
 _FP = {name: i for i, name in enumerate(FP_COLS)}
 #: Warps a unit may have for K2's lanes to keep their ready times in
 #: registers: ``WS_K * WS_LANES`` of csrc/warpsim_family.cuh (8 a lane, 32
-#: lanes). Above it, every step makes the popped warp's lane rescan its
-#: share of the unit's ready times in memory, ``WS_K`` loads a round.
+#: lanes). Above it the ready times stay in memory, in bands of
+#: consecutive warps whose first minima the lanes keep in those registers:
+#: up to 2,048 warps each lane keeps its own part of every band, and every
+#: step makes the popped warp's lane read its part again, ``WS_K`` loads;
+#: above, each band whole (at most ``REGISTER_WARPS`` bands), and every
+#: step makes the lanes read the popped warp's band again, ``WS_K``
+#: coalesced loads a lane a round.
 REGISTER_WARPS = 8 * 32
 
 
 def scan_rounds(n_warps: int) -> int:
-    """Rounds of loads one K2 step's rescan takes in a unit of `n_warps`
-    warps: ``ceil(n_warps / REGISTER_WARPS)`` above :data:`REGISTER_WARPS`,
-    0 at or below it, where the ready times sit in registers."""
-    return -(-n_warps // REGISTER_WARPS) if n_warps > REGISTER_WARPS else 0
+    """Rounds of loads one K2 step's rescan of a band takes in a unit of
+    `n_warps` warps: 0 at or below :data:`REGISTER_WARPS`, where the ready
+    times sit in registers; 1 up to ``REGISTER_WARPS ** 2`` (65,536),
+    where a band is 256 warps (one lane's part of it up to 2,048 warps);
+    ``ceil(n_warps / 65,536)`` above, where the bands widen so that there
+    are at most 256 of them."""
+    most = REGISTER_WARPS * REGISTER_WARPS
+    return -(-n_warps // most) if n_warps > REGISTER_WARPS else 0
 
 
 KERNELS = ("ws_prep_kernel", "ws_family_kernel")

@@ -31,7 +31,14 @@
 //       warps a unit), updated only by the lane whose warp changed; three
 //       32-bit warp reductions of an order-preserving key of the time and
 //       the warp then give the least time, lowest warp on ties: heapq's
-//       (time, warp) order;
+//       (time, warp) order. Above 256 warps the ready times stay in the
+//       state, in bands of 256 consecutive warps, and the lanes keep
+//       bands' first minima in those registers instead. Up to 8 bands
+//       (2,048 warps) each lane keeps its own part of every band, and a
+//       step has the changed warp's lane read its part again, one round of
+//       8 loads; above, a lane keeps whole bands (up to 256), and a step
+//       has every lane read the changed warp's band again, one coalesced
+//       round of 8 loads a lane, combined by three more reductions;
 //     - the way search: lane y tests way y; the first hit, whether its
 //       line is filled by now, and the first empty way come from ballots;
 //       the LRU victim (least tick, lowest way on ties) from two more
@@ -107,6 +114,26 @@ enum { WS_HIT_LAT = 0, WS_DEPTH, WS_DRAM_LAT, WS_SVC, WS_NF };
 // each lane keeps in registers.
 constexpr int WS_LANES = 32;
 constexpr int WS_K = 8;
+
+// Above WS_K * WS_LANES warps a unit's ready times stay in its state and
+// are read in bands of consecutive warps. Up to WS_K bands (2,048 warps),
+// register b of lane l holds the first minimum of lane l's own warps of
+// band b (ws_lane_parts). Above, 256 warps a band up to 65,536 warps, so
+// that the lanes' WS_K registers hold every band's first minimum (band b
+// in register b / WS_LANES of lane b % WS_LANES); above, bands of 256 *
+// ws_band_rounds(nw) warps, read in that many rounds, so that a unit never
+// has more than 256 bands.
+WS_HD inline bool ws_lane_parts(int nw) {
+    return nw <= WS_K * WS_K * WS_LANES;
+}
+WS_HD inline int ws_band_rounds(int nw) {
+    const int most = WS_K * WS_LANES * WS_K * WS_LANES;
+    return (nw + most - 1) / most;
+}
+WS_HD inline int ws_band_of(int w, int rounds) {
+    const int b = w / (WS_K * WS_LANES);
+    return rounds > 1 ? b / rounds : b;
+}
 
 // A divisor d (1 <= d < 2^31) with its multiply-high constants: l =
 // ceil(log2 d) and m = ceil(2^(63+l) / d) (marshal() in _cuda.py). Then
@@ -225,6 +252,11 @@ WS_HD inline bool ws_before(T t, int64_t w, T t2, int64_t w2) {
 struct WsHostLanes {
     double lt[WS_LANES];    // lane l's first minimum of its warps' ready
     int64_t lw[WS_LANES];   // ... and its warp, -1 when all are inf
+    // Above 256 warps: lane l's first minima of its parts of bands 0, 1,
+    // ... (up to 2,048 warps), else of bands l, l + 32, ..., and their
+    // warps (-1 when all are inf); lt, lw are then the first of them.
+    double bt[WS_LANES][WS_K];
+    int64_t bw[WS_LANES][WS_K];
 
     int first() const { return 0; }
     int stride() const { return 1; }
@@ -247,12 +279,93 @@ struct WsHostLanes {
         lt[l] = t;
         lw[l] = w;
     }
+    // Band b's first minimum into its lane's register: pass l reads what
+    // lane l reads (the band's warps l, l + 32, ...), and the passes'
+    // minima combine as the lanes' reductions do.
+    void band(const double *ready, int nw, int rounds, int b) {
+        const int j0 = b * rounds * WS_K * WS_LANES;
+        const int span = rounds * WS_K * WS_LANES;
+        const int j1 = nw - j0 < span ? nw : j0 + span;
+        double t = INFINITY;
+        int64_t w = -1;
+        for (int l = 0; l < WS_LANES; l++) {
+            double tl = INFINITY;
+            int64_t wl = -1;
+            for (int j = j0 + l; j < j1; j += WS_LANES)
+                if (ready[j] < tl) {
+                    tl = ready[j];
+                    wl = j;
+                }
+            if (ws_before(tl, wl, t, w)) {
+                t = tl;
+                w = wl;
+            }
+        }
+        bt[b % WS_LANES][b / WS_LANES] = t;
+        bw[b % WS_LANES][b / WS_LANES] = w;
+    }
+    // Lane l's part of band b (its warps b * 256 + l, + 32, ...) into its
+    // register b, as lane l reads it (up to 2,048 warps).
+    void part(const double *ready, int nw, int l, int b) {
+        const int j1 = nw < (b + 1) * WS_K * WS_LANES ? nw
+                                                      : (b + 1) * WS_K * WS_LANES;
+        double t = INFINITY;
+        int64_t w = -1;
+        for (int j = b * WS_K * WS_LANES + l; j < j1; j += WS_LANES)
+            if (ready[j] < t) {
+                t = ready[j];
+                w = j;
+            }
+        bt[l][b] = t;
+        bw[l][b] = w;
+    }
+    // Lane l's first minimum of its bands: the lower band wins ties.
+    void bands_min(int l) {
+        double t = INFINITY;
+        int64_t w = -1;
+        for (int k = 0; k < WS_K; k++)
+            if (bt[l][k] < t) {
+                t = bt[l][k];
+                w = bw[l][k];
+            }
+        lt[l] = t;
+        lw[l] = w;
+    }
     void start(const double *ready, int nw) {
+        if (nw > WS_K * WS_LANES) {
+            const int rounds = ws_band_rounds(nw);
+            for (int l = 0; l < WS_LANES; l++)
+                for (int k = 0; k < WS_K; k++) {
+                    bt[l][k] = INFINITY;
+                    bw[l][k] = -1;
+                }
+            for (int b = 0; b * rounds * WS_K * WS_LANES < nw; b++) {
+                if (ws_lane_parts(nw))
+                    for (int l = 0; l < WS_LANES; l++) part(ready, nw, l, b);
+                else
+                    band(ready, nw, rounds, b);
+            }
+            for (int l = 0; l < WS_LANES; l++) bands_min(l);
+            return;
+        }
         for (int l = 0; l < WS_LANES; l++) refresh_lane(l, ready, nw);
     }
     // ready[w] changed (to the value it now holds): only its lane's
-    // minimum can have moved.
+    // minimum can have moved; above 256 warps, only its lane's part of its
+    // band, or above 2,048 warps its band's, held by one lane.
     void changed(const double *ready, int nw, int w, double) {
+        if (nw > WS_K * WS_LANES) {
+            if (ws_lane_parts(nw)) {
+                part(ready, nw, w % WS_LANES, w / (WS_K * WS_LANES));
+                bands_min(w % WS_LANES);
+                return;
+            }
+            const int rounds = ws_band_rounds(nw);
+            const int b = ws_band_of(w, rounds);
+            band(ready, nw, rounds, b);
+            bands_min(b % WS_LANES);
+            return;
+        }
         refresh_lane(w % WS_LANES, ready, nw);
     }
     // The first minimum of ready over all warps; -1 when every warp is inf.
@@ -321,7 +434,12 @@ struct WsWarpLanes {
     double lt;   // this lane's first minimum of its warps' ready
     int lw;      // ... and its warp, -1 when all are inf
     unsigned key_hi, key_lo;  // lt as an unsigned key of the same order
-    double v[WS_K];  // ready of warps lane, lane + 32, ... (up to 256 warps)
+    // Ready times of warps lane, lane + 32, ... (up to 256 warps); above,
+    // the first minima of this lane's parts of bands 0, 1, ... (up to
+    // 2,048 warps), else of bands lane, lane + 32, ..., and their warps
+    // (-1 when all are inf).
+    double v[WS_K];
+    int vw[WS_K];
     int lane;
 
     __device__ WsWarpLanes()
@@ -330,11 +448,19 @@ struct WsWarpLanes {
     // Keys order as the doubles do (no NaN reaches the ready times): the
     // sign bit flipped for t >= 0, every bit for t < 0, and -0 keyed as +0
     // since the two compare equal.
-    __device__ void set_key() {
+    __device__ static unsigned long long key_of(double t) {
         const unsigned long long b =
-            (unsigned long long)__double_as_longlong(lt == 0.0 ? 0.0 : lt);
-        const unsigned long long k =
-            (b >> 63) ? ~b : b | 0x8000000000000000ull;
+            (unsigned long long)__double_as_longlong(t == 0.0 ? 0.0 : t);
+        return (b >> 63) ? ~b : b | 0x8000000000000000ull;
+    }
+    // The time of a key: key_of undone (the ready times are never -0).
+    __device__ static double key_time(unsigned hi, unsigned lo) {
+        const unsigned long long k = (unsigned long long)hi << 32 | lo;
+        return __longlong_as_double(
+            (long long)((k >> 63) ? k ^ 0x8000000000000000ull : ~k));
+    }
+    __device__ void set_key() {
+        const unsigned long long k = key_of(lt);
         key_hi = (unsigned)(k >> 32);
         key_lo = (unsigned)k;
     }
@@ -382,9 +508,8 @@ struct WsWarpLanes {
         *t = u[0];
         *w = u[0] < INFINITY ? uw[0] : -1;
     }
-    // The first minimum of this lane's warps. Up to 256 warps a unit the
-    // lane keeps its warps' ready times in registers (v); above, it scans
-    // them in shared memory, WS_K loads in flight at once.
+    // The first minimum of this lane's warps, their ready times loaded into
+    // its registers (v), WS_K loads in flight at once.
     __device__ void scan(const double *ready, int nw) {
         double t = INFINITY;
         int w = -1;
@@ -405,15 +530,132 @@ struct WsWarpLanes {
         lw = w;
         set_key();
     }
-    __device__ void start(const double *ready, int nw) { scan(ready, nw); }
-    // ready[w] changed to t: only its lane's minimum can have moved, and
-    // that lane alone updates it.
-    __device__ void changed(const double *ready, int nw, int w, double t) {
-        if ((w & (WS_LANES - 1)) != lane) return;
+    // This lane's part of band b (its warps b * 256 + lane, + 32, ...):
+    // its first minimum into register b, a round of WS_K loads, warp w
+    // taken as ready at t without a load (w < 0: none).
+    __device__ void part(const double *ready, int nw, int b, int w,
+                         double t) {
+        const int j0 = b * WS_K * WS_LANES + lane;
+        double u[WS_K];
+#pragma unroll
+        for (int k = 0; k < WS_K; k++) {
+            const int j = j0 + k * WS_LANES;
+            u[k] = j == w ? t : j < nw ? ready[j] : INFINITY;
+        }
+        double tp;
+        int wp;
+        tree_min(u, j0, &tp, &wp);
+#pragma unroll
+        for (int k = 0; k < WS_K; k++)
+            if (k == b) {
+                v[k] = tp;
+                vw[k] = wp;
+            }
+    }
+    // Band b's first minimum, by every lane, into register b / WS_LANES of
+    // lane b % WS_LANES: a round of WS_K coalesced loads a lane (rounds of
+    // them in bands wider than 256 warps), each lane's tree of compares,
+    // then the lanes' minima combined as pop() combines them. Warp w is
+    // taken as ready at t without a load (w < 0: none). Lane l reads only
+    // warps l, l + 32, ..., whose ready times it stored itself, so the
+    // loads need no fence in either placement.
+    __device__ void band(const double *ready, int nw, int rounds, int b,
+                         int w, double t) {
+        double bt = INFINITY;
+        int bw = -1;
+        for (int r = 0; r < rounds; r++) {
+            const int j0 = (b * rounds + r) * WS_K * WS_LANES + lane;
+            double u[WS_K];
+#pragma unroll
+            for (int k = 0; k < WS_K; k++) {
+                const int j = j0 + k * WS_LANES;
+                u[k] = j == w ? t : j < nw ? ready[j] : INFINITY;
+            }
+            double tr;
+            int wr;
+            tree_min(u, j0, &tr, &wr);
+            if (tr < bt) {
+                bt = tr;
+                bw = wr;
+            }
+        }
+        const unsigned long long k = key_of(bt);
+        const unsigned hi = __reduce_min_sync(ALL, (unsigned)(k >> 32));
+        const unsigned lo = __reduce_min_sync(
+            ALL, (unsigned)(k >> 32) == hi ? (unsigned)k : 0xffffffffu);
+        const int wb = (int)__reduce_min_sync(
+            ALL, (unsigned)(k >> 32) == hi && (unsigned)k == lo
+                     ? (unsigned)bw : 0xffffffffu);
+        if ((b & (WS_LANES - 1)) != lane) return;
+        const double tb = key_time(hi, lo);
+        const int kb = b / WS_LANES;
+#pragma unroll
+        for (int k2 = 0; k2 < WS_K; k2++)
+            if (k2 == kb) {
+                v[k2] = tb;
+                vw[k2] = wb;
+            }
+    }
+    // lt, lw: the first minimum of this lane's bands, a tree of compares
+    // with the lower band winning ties.
+    __device__ void bands_min() {
+        double u[WS_K];
+        int uw[WS_K];
+#pragma unroll
+        for (int k = 0; k < WS_K; k++) {
+            u[k] = v[k];
+            uw[k] = vw[k];
+        }
+#pragma unroll
+        for (int h = 1; h < WS_K; h *= 2)
+#pragma unroll
+            for (int k = 0; k < WS_K; k += 2 * h)
+                if (u[k + h] < u[k]) {
+                    u[k] = u[k + h];
+                    uw[k] = uw[k + h];
+                }
+        lt = u[0];
+        lw = uw[0];
+        set_key();
+    }
+    __device__ void start(const double *ready, int nw) {
         if (nw > WS_K * WS_LANES) {
-            scan(ready, nw);
+            const int rounds = ws_band_rounds(nw);
+#pragma unroll
+            for (int k = 0; k < WS_K; k++) {
+                v[k] = INFINITY;
+                vw[k] = -1;
+            }
+            for (int b = 0; b * rounds * WS_K * WS_LANES < nw; b++) {
+                if (ws_lane_parts(nw))
+                    part(ready, nw, b, -1, 0.0);
+                else
+                    band(ready, nw, rounds, b, -1, 0.0);
+            }
+            bands_min();
             return;
         }
+        scan(ready, nw);
+    }
+    // ready[w] changed to t: only its lane's minimum can have moved, and
+    // that lane alone updates it. Above 256 warps that lane reads its part
+    // of w's band again; above 2,048 every lane reads w's band again, and
+    // the lane that holds the band updates its minimum.
+    __device__ void changed(const double *ready, int nw, int w, double t) {
+        if (nw > WS_K * WS_LANES) {
+            if (ws_lane_parts(nw)) {
+                if ((w & (WS_LANES - 1)) != lane) return;
+                part(ready, nw, w / (WS_K * WS_LANES), w, t);
+                bands_min();
+                return;
+            }
+            const int rounds = ws_band_rounds(nw);
+            const int b = ws_band_of(w, rounds);
+            band(ready, nw, rounds, b, w, t);
+            if ((b & (WS_LANES - 1)) == lane) bands_min();
+            return;
+        }
+        if ((w & (WS_LANES - 1)) != lane) return;
         const int kw = w / WS_LANES;
 #pragma unroll
         for (int k = 0; k < WS_K; k++)
@@ -423,15 +665,16 @@ struct WsWarpLanes {
     }
     // Three warp reductions of 32-bit keys: the high half of the least
     // time, its low half, then the lowest warp holding it (-1, all bits
-    // set, only when every time is inf). The time itself comes from the
-    // lane that holds the warp.
+    // set, only when every time is inf). The time itself is the least
+    // key's: above 2,048 warps the lane that holds a warp's band need not
+    // be the lane of the warp.
     __device__ int pop(double *t_out) const {
         const unsigned hi = __reduce_min_sync(ALL, key_hi);
         const unsigned lo =
             __reduce_min_sync(ALL, key_hi == hi ? key_lo : 0xffffffffu);
         const int w = (int)__reduce_min_sync(
             ALL, key_hi == hi && key_lo == lo ? (unsigned)lw : 0xffffffffu);
-        *t_out = __shfl_sync(ALL, lt, w & (WS_LANES - 1));
+        *t_out = key_time(hi, lo);
         return w;
     }
     __device__ int find_way(const int32_t *tags, const double *fills,

@@ -72,7 +72,9 @@ K2's seconds a step in each placement (``shared``, ``global``). Read
 beside them, ``warpsim_k2_scan_rounds_total{placement}`` (counter: each
 launch's longest unit's steps times the rounds of loads a step of it
 rescans, ``_cuda.scan_rounds``; 0 for a unit of at most 256 warps,
-whose ready times sit in registers); over the steps, the rounds a step.
+whose ready times sit in registers, 1 up to 65,536 warps, where a step
+re-reads one band or one lane's part of it); over the steps, the rounds
+a step.
 Another, made at the first launch: ``warpsim_k2_beside`` (histogram,
 no labels: at each K2 launch, the earlier K2 launches on other streams
 whose results were not in yet; a study's launches take a pool of

@@ -17,7 +17,7 @@ reference engine is bit-identical to every other.
   core in both placements of K2's state, on the paper grid's seed-0
   families, the dense and simd32 sweeps' seed-0 families, on odd,
   16-SM and wider-than-32-way geometries and on V100-shaped families
-  whose units pass 256 warps (K2's rescan in memory); K1 alone
+  whose units pass 256 warps (K2's bands in memory); K1 alone
   equals ``prep_ref``; the multiply-high remainder equals Python's ``%``;
   the searches alone keep the tie rules.
 * The slice end to end: Session/Study records equal the reference's.
@@ -570,7 +570,7 @@ def _v100_suite():
             + [rmachines.sw_plus(16, **kw), rmachines.lw_plus(16, **kw)])
 
 
-@pytest.mark.parametrize("n_threads,rounds", [(4224, 2), (8448, 3)])
+@pytest.mark.parametrize("n_threads,rounds", [(4224, 1), (8448, 1)])
 def test_host_build_matches_native_on_v100_units_over_256_warps(
         host_lib, n_threads, rounds):
     """K2's rescan path, where a lane's registers no longer hold its warps'
@@ -592,20 +592,57 @@ def test_host_build_matches_native_on_v100_units_over_256_warps(
         cfg)) for _stream, cfg in port])
 
 
+def _two_sm_suite():
+    """2-SM machines, whose state fits shared memory: at 16,384 threads
+    units of 2,048 (ws8) and 1,024 (ws16) warps beside LW+'s 256."""
+    return [rmachines.baseline(8, num_sms=2),
+            rmachines.baseline(16, num_sms=2), rmachines.lw_plus(num_sms=2)]
+
+
+@pytest.mark.parametrize("suite,n_threads,wide", [
+    (_two_sm_suite, 16384, [1024, 2048]),
+    (_v100_suite, 163840, [1280, 2560, 5120, 10240])], ids=["2sm", "v100"])
+def test_host_build_matches_native_on_bands(host_lib, suite, n_threads,
+                                            wide):
+    """K2's bands above 256 warps, in both placements, bit for bit with
+    the C core: 2-SM units of 1,024 and 2,048 warps (each lane keeps its
+    part of every band), and the ``v100`` family at 163,840 threads,
+    whose ws16 and SW+ units have 10,240 warps (40 whole bands, in the
+    lanes' registers 0 and 1)."""
+    fam = _check_host_build(
+        host_lib, get_workload("BFS", n_threads=n_threads, seed=0), suite())
+    widths = fam.up[:, _cuda.UP_COLS.index("n_warps")].tolist()
+    assert sorted({n for n in widths if n > _cuda.REGISTER_WARPS}) == wide
+
+
+def test_host_build_matches_native_on_66000_warps(host_lib):
+    """Bands of 512 warps, read in two rounds: one synthetic stream of
+    66,000 warps on a 4-SM machine and its SW+ twin, in both placements,
+    bit for bit with the C core."""
+    from test_torch_k2_scan_rounds import wide_cols
+    cols = wide_cols(66000)
+    cfgs = [rmachines.baseline(4, 4, num_sms=4),
+            rmachines.sw_plus(4, num_sms=4)]
+    want = [_native.run_scheduling_loop(*cols, cfg) for cfg in cfgs]
+    fam = _cuda.marshal([(cols, _port_cfg(c)) for c in cfgs], device="cpu")
+    for placement in _cuda.PLACEMENTS:
+        cycles, counts = _host_family(host_lib, fam, placement)
+        loops = [(c, o, m, h) for c, (o, m, h) in zip(cycles.tolist(),
+                                                      counts.tolist())]
+        assert loops == want, placement
+
+
 def _first_min_pops(ready, after):
     """What the pops must give: heapq's (time, warp) order, by a plain
-    scan for the first minimum."""
-    ready = list(ready)
+    scan for the first minimum (numpy's argmin)."""
+    ready = np.array(ready, dtype=np.float64)
     order = []
     for t_next in after:
-        w = -1
-        t = float("inf")
-        for j, r in enumerate(ready):
-            if r < t:
-                t, w = r, j
-        order.append(w)
-        if w < 0:
+        w = int(np.argmin(ready))
+        if not ready[w] < float("inf"):
+            order.append(-1)
             break
+        order.append(w)
         ready[w] = t_next
     return order
 
@@ -627,13 +664,50 @@ def test_host_pop_keeps_first_minimum_on_ties(host_lib, case):
         ready = list(rng.integers(0, 6, 256).astype(np.float64))
         after = list(rng.integers(0, 8, 2000).astype(np.float64))
         after[::7] = [inf] * len(after[::7])
-    want = _first_min_pops(ready, after)
+    assert _host_pops(host_lib, ready, after) == _first_min_pops(ready,
+                                                                 after)
+
+
+def _host_pops(lib, ready, after):
     r = np.array(ready, dtype=np.float64)
     a = np.array(after, dtype=np.float64)
     order = np.full(len(after), -9, dtype=np.int64)
-    n = host_lib.ws_host_pops(r.ctypes.data, len(r), a.ctypes.data, len(a),
-                              order.ctypes.data)
-    assert order[:n].tolist() == want
+    n = lib.ws_host_pops(r.ctypes.data, len(r), a.ctypes.data, len(a),
+                         order.ctypes.data)
+    return order[:n].tolist()
+
+
+@pytest.mark.parametrize("case", ["in_band", "across_bands", "inf"])
+@pytest.mark.parametrize("nw", [257, 264, 512, 513, 528, 2048, 10240,
+                                65537])
+def test_host_pop_keeps_first_minimum_on_ties_in_bands(host_lib, nw, case):
+    """Units above 256 warps, whose lanes keep first minima of bands (each
+    lane its part of every band up to 2,048 warps): ties between warps of
+    one band, between bands (those of one lane, 32 bands apart, among
+    them), and warps that finish (inf) until every warp is inf; 65,537
+    warps make bands of 512 warps, read in two rounds."""
+    inf = float("inf")
+    rng = np.random.default_rng(nw)
+    span = 256 * -(-nw // 65536)
+    n_pops = 3000
+    if case == "in_band":    # few distinct times: ties everywhere
+        ready = rng.integers(0, 3, nw).astype(np.float64)
+        after = rng.integers(0, 4, n_pops).astype(np.float64)
+    elif case == "across_bands":   # one time, the same offset in each band
+        ready = np.full(nw, 9.0)
+        for b in range(-(-nw // span)):
+            for x in (5, 37, span - 1):
+                if b * span + x < nw:
+                    ready[b * span + x] = 2.0
+        after = np.tile([2.0, 3.0, 2.0, 9.0], n_pops // 4)
+    else:   # warps finish, a few come back, then every warp finishes
+        ready = np.where(rng.random(nw) < 0.9, inf, rng.integers(0, 5, nw))
+        after = np.full(n_pops + int(np.isfinite(ready).sum()), inf)
+        after[:n_pops:50] = 1.0
+    want = _first_min_pops(ready, after)
+    if case == "inf":
+        assert want[-1] == -1
+    assert _host_pops(host_lib, ready, after) == want
 
 
 @pytest.mark.parametrize("ways", [1, 3, 8, 32, 33, 40, 72])
